@@ -1,0 +1,156 @@
+"""Unidirectional path tracer with NEE + MIS and Russian roulette.
+
+Counterpart of ``lumo_tpu/integrators/path_trace.py`` (reference
+``path_trace.rs``) in its forward while-loop mode: every lane of a
+fixed-shape SoA path state advances one bounce per iteration under an
+alive mask, and a Python loop runs until no lane is alive or
+``max_depth`` bounces have run.  All randomness is a counter hash of the
+per-ray ``ray_key``, so a lane's path matches the JAX package's bit for
+bit in its random draws.
+"""
+from __future__ import annotations
+
+import torch
+
+from lumo_tpu_torch.bsdf import eval as bsdf
+from lumo_tpu_torch.color import space, wavelength
+from lumo_tpu_torch.config import RADIANCE
+from lumo_tpu_torch.geometry import intersect as geo
+from lumo_tpu_torch.integrators import common
+from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _randfloat
+from lumo_tpu_torch.scene import trace
+
+_TINY = 1e-30
+
+RR_DEPTH = 5          # reference ``path_trace.rs:3``
+MAX_DEPTH = 64        # hard wavefront bound (RR terminates long before)
+
+_S_LOBE = 0x632BE59B
+_S_SQ0 = 0x85297A4D
+_S_SQ1 = 0xD6E8FEB8
+_S_RR = 0xA0761D64
+
+
+def ray_keys(generator: torch.Generator, n: int, device=None):
+    """Per-ray counter states for callers with no per-ray ids: the hash
+    of (a draw from ``generator``, lane)."""
+    base = int(torch.randint(0, 1 << 32, (), generator=generator,
+                             dtype=torch.int64, device=generator.device))
+    return _hash_u32(torch.arange(n, dtype=torch.int64, device=device) ^ base)
+
+
+def bounce(scene, s, delta):
+    """One wavefront bounce of the path state ``s`` (a dict)."""
+    rng = _hash_u32((s["rng"] + 0x9E3779B9) & MASK32)
+    hit = trace.intersect(scene, s["o"], s["d"], alive=s["alive"])
+    alive = s["alive"] & hit["valid"]
+    wo = -s["d"]
+    lam = s["lam"]
+    tr_seg = trace.transmittance(scene, lam, hit["t"])
+    gathered0 = s["gathered"] * torch.where(alive[..., None], tr_seg, 1.0)
+
+    lam2 = wavelength.terminate(lam, bsdf.dispersive_mask(scene.materials,
+                                                          hit["mat"]))
+    mp = bsdf.gather_params(scene.materials, hit["mat"], lam2, hit["uv"],
+                            kinds=scene.kinds_present)
+
+    u_lobe = _randfloat(rng, _S_LOBE)
+    u_sq = torch.stack([_randfloat(rng, _S_SQ0), _randfloat(rng, _S_SQ1)],
+                       dim=-1)
+    wi, sample_ok, _ = bsdf.sample(mp, wo, hit["ns"], hit["backface"], lam2,
+                                   u_lobe, u_sq)
+
+    # emitter hit: the path ends here; after a NEE vertex the emission is
+    # the BSDF-sampled MIS strategy (reference ``path_trace.rs:22-28``)
+    emit = trace.emitted(scene, hit["mat"], lam, hit["uv"], hit["backface"])
+    w_mis = common.emitter_mis_weight(scene, s["o"], s["d"], hit,
+                                      s["p_sct"], s["did_nee"])
+    add_emit = alive & ~sample_ok
+    radiance = s["radiance"] + torch.where(add_emit[..., None],
+                                           gathered0 * emit
+                                           * w_mis[..., None], 0.0)
+    alive = alive & sample_ok
+
+    # NEE at non-delta vertices (reference ``path_trace.rs:30-40``)
+    nee = common.nee_rays(scene, mp, wo, gathered0, hit, lam2, rng)
+    do_nee = alive & ~mp["is_delta"]
+    radiance = radiance + torch.where(do_nee[..., None], nee, 0.0)
+
+    # continue the path
+    ro = geo.offset_ray_origin(hit["p"], hit["err"], hit["ng"], wi)
+    f_val, p_sct = bsdf.f_pdf(mp, wo, wi, hit["ng"], hit["ns"],
+                              hit["backface"], lam2, RADIANCE)
+    alive = alive & (p_sct > 1e-12) & torch.isfinite(p_sct)
+    p_safe = torch.where(alive, p_sct, 1.0)
+    f_val = torch.where(alive[..., None], f_val, 0.0)
+    cosine = bsdf.shading_cosine(mp, wi, hit["ns"])
+    gathered = gathered0 * f_val * (cosine / p_safe)[..., None]
+
+    # russian roulette after RR_DEPTH (reference ``path_trace.rs:65-72``)
+    lum = space.luminance(gathered, lam2)
+    rr_prob = torch.clamp(lum / delta, max=1.0)
+    u_rr = _randfloat(rng, _S_RR)
+    do_rr = s["depth"] >= RR_DEPTH
+    alive = alive & ~(do_rr & (u_rr > rr_prob))
+    rr_div = torch.where(do_rr & alive, torch.clamp(rr_prob, min=_TINY), 1.0)
+    gathered = gathered / rr_div[..., None]
+
+    a3 = alive[..., None]
+    out = {
+        "o": torch.where(a3, ro, s["o"]),
+        "d": torch.where(a3, wi, s["d"]),
+        "lam": torch.where(a3, lam2, lam),
+        "radiance": radiance,
+        "gathered": torch.where(a3, gathered, s["gathered"]),
+        "alive": alive,
+        "did_nee": torch.where(alive, do_nee, s["did_nee"]),
+        "p_sct": torch.where(alive, p_sct, s["p_sct"]),
+        "depth": s["depth"] + alive.to(s["depth"].dtype),
+        "rng": rng,
+        # the prim each live lane hit this bounce, -1 for dead or missed
+        # lanes: the discrete path topology
+        "prim": torch.where(s["alive"] & hit["valid"], hit["prim"], -1),
+    }
+    return out
+
+
+def initial_state(o, d, lam, ray_key):
+    """The path state of N camera rays before their first bounce."""
+    N, dev = o.shape[0], o.device
+    return {
+        "o": o, "d": d, "lam": lam,
+        "radiance": torch.zeros((N, 4), dtype=o.dtype, device=dev),
+        "gathered": torch.ones((N, 4), dtype=o.dtype, device=dev),
+        "alive": torch.ones(N, dtype=torch.bool, device=dev),
+        "did_nee": torch.zeros(N, dtype=torch.bool, device=dev),
+        "p_sct": torch.ones(N, dtype=o.dtype, device=dev),
+        "depth": torch.zeros(N, dtype=torch.int32, device=dev),
+        "rng": torch.as_tensor(ray_key, dtype=torch.int64, device=dev),
+    }
+
+
+def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
+              max_depth=MAX_DEPTH, trace_prims=False):
+    """Trace a wavefront of N camera rays to completion.
+
+    o, d (N, 3); lam (N, 4) hero wavelengths; delta: the RR threshold.
+    ``ray_key``: (N,) per-ray uint32 counter states (int64 tensor); drawn
+    from ``generator`` with :func:`ray_keys` when not given.  Returns
+    (radiance (N, 4), lam_out (N, 4), depth (N,)), and with
+    ``trace_prims`` also the per-bounce hit prim ids (bounces, N)."""
+    N = o.shape[0]
+    dev = o.device
+    if ray_key is None:
+        ray_key = ray_keys(generator, N, device=dev)
+    s = initial_state(o, d, lam, ray_key)
+    prims = []
+    for _ in range(max_depth):
+        if not bool(s["alive"].any()):
+            break
+        s = bounce(scene, s, delta)
+        prims.append(s["prim"])
+    if trace_prims:
+        stacked = (torch.stack(prims) if prims else
+                   torch.empty((0, N), dtype=torch.int64, device=dev))
+        return s["radiance"], s["lam"], s["depth"], stacked
+    return s["radiance"], s["lam"], s["depth"]

@@ -1,0 +1,72 @@
+"""Guards on the port's boundaries: lumo_tpu_torch and chip_smoke.py
+import neither JAX nor anything of lumo_tpu, and the entry points run on
+the card unless the caller names another device."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from _torch_port import SCENE_FIELDS
+from lumo_tpu_torch.camera import build_camera
+from lumo_tpu_torch.scene import scene as tscene
+from lumo_tpu_torch.scene.cornell import empty_box
+from lumo_tpu_torch.scene.materials import Material
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import lumo_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lumo_tpu_torch.__path__,
+                                               "lumo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "lumo_tpu" or m.startswith("lumo_tpu."))
+assert not leaked, leaked
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print(len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_lumo_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 25     # every module was imported
+
+
+def _box():
+    return empty_box((0.9, 0.9, 0.9), Material.diffuse((0.8, 0.2, 0.2)),
+                     Material.diffuse((0.2, 0.8, 0.2)))
+
+
+def _carry(sd):
+    """``from_numpy`` without a device, on a CPU scene's host arrays."""
+    fields = {k: getattr(sd, k).numpy() for k in SCENE_FIELDS}
+    fields["n_bvh_tris"] = sd.n_bvh_tris
+    fields["materials"] = {k: v.numpy() for k, v in sd.materials.items()}
+    return tscene.from_numpy(fields, None)
+
+
+@pytest.mark.parametrize("entry", ["build", "to", "from_numpy", "camera"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device=``: on the card where one is visible, else an
+    error, never a silent run on the CPU."""
+    calls = {"build": lambda: _box().build(),
+             "to": lambda: _box().build(device="cpu").to(),
+             "from_numpy": lambda: _carry(_box().build(device="cpu")),
+             "camera": lambda: build_camera(resolution=(8, 8))}
+    if torch.cuda.is_available():
+        out = calls[entry]()
+        dev = out.c2w_t.device if entry == "camera" else out.device
+        assert dev.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry]()
