@@ -13,40 +13,44 @@ version, a CUDA tensor launches the kernel or raises.  The plain versions
 over the BVH's triangles with ``geometry.intersect.triangle_t`` and an
 argmin (lowest index on ties, as the kernel breaks them); the CPU tests
 use them, and ``chip_smoke.py`` holds the kernel against them on the card.
+
+``closest_hit_stats`` is the counterpart of ``pallas_bvh.closest_hit_stats``
+(the TPU kernel's ``stats=True`` mode): the closest hit plus traversal
+counters.  Its plain version, ``closest_hit_stats_plain``, is a per-lane
+PyTorch walk over the same packed ``nodes`` and ``tris`` the kernel reads,
+in the kernel's order, so it must return the kernel's ``t``, ``prim`` and
+counters exactly.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 
+from lumo_tpu_torch.accel import cuda_build
+from lumo_tpu_torch.accel.cuda_build import (check_counts, check_tensor,
+                                              count_ptrs, ptr, raise_on,
+                                              stream)
+from lumo_tpu_torch.accel.walk import (INFLATE, keep_better, leaf_best, rows,
+                                        slab_reciprocals, stack_put,
+                                        stack_take)
 from lumo_tpu_torch.config import INF
 from lumo_tpu_torch.geometry.intersect import ray_setup, triangle_t
 
 STACK = 64  # per-thread traversal stack of the kernel
+WARP = 32   # lanes that share a program counter on the card
 
-# Launches of the kernel's two entry points since the last reset; the
-# wrappers add one per launch and nothing else touches them.
-LAUNCHES = {"closest": 0, "any": 0}
+# Launches of the kernel's entry points since the last reset; the wrappers
+# add one per launch and nothing else touches them.
+LAUNCHES = {"closest": 0, "any": 0, "stats": 0}
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "bvh_traverse.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-_SO = os.path.join(BUILD_DIR, "libbvh_traverse.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-
-_lock = threading.Lock()
-_lib = None
-# what the last build printed (ptxas register and spill report) and took
-BUILD_INFO = {"log": "", "seconds": None}
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+LIB = cuda_build.Library("bvh_traverse", {
+    "lumo_bvh_closest": [_VP] * 5 + [_CI] + [_VP] * 6,
+    "lumo_bvh_any": [_VP] * 5 + [_CI] + [_VP] * 5,
+    "lumo_bvh_closest_stats": [_VP] * 5 + [_CI] + [_VP] * 4,
+}, headers=("woop.cuh",))
 
 
 def pack_nodes(bvh: dict) -> np.ndarray:
@@ -80,117 +84,21 @@ def pack_tris(a, b, c) -> np.ndarray:
     return out
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the BVH kernel cannot be built")
-    return path
-
-
-def build() -> None:
-    """Compile ``csrc/bvh_traverse.cu`` into ``build/`` (raises on error)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, _SO)
-    BUILD_INFO["log"] = res.stderr + res.stdout
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(SOURCE)):
-            build()
-        lib = ctypes.CDLL(_SO)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lumo_bvh_closest.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, vp,
-                                         vp, vp, vp]
-        lib.lumo_bvh_closest.restype = ci
-        lib.lumo_bvh_any.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, vp, vp,
-                                     vp]
-        lib.lumo_bvh_any.restype = ci
-        _lib = lib
-        return _lib
-
-
 def _check_inputs(bvh, o, d, t_max, counts, seen):
     dev = o.device
     if bvh["depth"] > STACK:
         raise ValueError(f"BVH depth {bvh['depth']} exceeds the kernel's "
                          f"{STACK}-entry stack")
     N = o.shape[0]
-    want = {"o": (o, (N, 3), torch.float32), "d": (d, (N, 3), torch.float32),
-            "t_max": (t_max, (N,), torch.float32),
-            "nodes": (bvh["nodes"], None, torch.float32),
-            "tris": (bvh["tris"], None, torch.float32)}
-    for name, (x, shape, dtype) in want.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if bvh["nodes"].ndim != 3 or bvh["nodes"].shape[1:] != (2, 4):
-        raise ValueError("nodes must be (M, 2, 4)")
-    if bvh["tris"].ndim != 3 or bvh["tris"].shape[1:] != (3, 4):
-        raise ValueError("tris must be (T, 3, 4)")
+    check_tensor("o", o, dev, torch.float32, shape=(N, 3))
+    check_tensor("d", d, dev, torch.float32, shape=(N, 3))
+    check_tensor("t_max", t_max, dev, torch.float32, shape=(N,))
+    check_tensor("nodes", bvh["nodes"], dev, torch.float32, tail=(2, 4))
+    check_tensor("tris", bvh["tris"], dev, torch.float32, tail=(3, 4))
     if N >= 1 << 31:
         raise ValueError("too many rays for one launch")
-    if counts is not None and (counts.device != dev
-                               or counts.dtype != torch.int64
-                               or tuple(counts.shape) != (2,)):
-        raise ValueError("counts must be a (2,) int64 tensor on the rays' "
-                         "device")
-    if seen is not None:
-        M, T = bvh["nodes"].shape[0], bvh["tris"].shape[0]
-        if counts is None:
-            raise ValueError("seen is filled only together with counts")
-        if (seen.device != dev or seen.dtype != torch.uint8
-                or tuple(seen.shape) != (M + T,) or not seen.is_contiguous()):
-            raise ValueError(f"seen must be a contiguous ({M + T},) uint8 "
-                             f"tensor on the rays' device")
-
-
-def _stats_ptrs(bvh, counts, seen):
-    """(counts, seen nodes, seen triangles) pointers, None where unused."""
-    if counts is None:
-        return None, None, None
-    if seen is None:
-        return _ptr(counts), None, None
-    M = bvh["nodes"].shape[0]
-    return _ptr(counts), _ptr(seen[:M]), _ptr(seen[M:])
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"BVH {what} kernel launch failed: cudaError {rc}")
-
-
-def rows(t_max, o):
-    """A scalar ``t_max`` as one value per ray of ``o``."""
-    if isinstance(t_max, (int, float)):
-        return torch.full(o.shape[:1], float(t_max), dtype=o.dtype,
-                          device=o.device)
-    return t_max
+    check_counts(counts, seen, dev,
+                 bvh["nodes"].shape[0] + bvh["tris"].shape[0])
 
 
 def closest_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
@@ -207,15 +115,15 @@ def closest_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_inputs(bvh, o, d, t_max, counts, seen)
-    lib = _load()
+    lib = LIB.load()
     N = o.shape[0]
     t = torch.empty(N, dtype=torch.float32, device=o.device)
     prim = torch.empty(N, dtype=torch.int64, device=o.device)
     rc = lib.lumo_bvh_closest(
-        _ptr(bvh["nodes"]), _ptr(bvh["tris"]), _ptr(o), _ptr(d), _ptr(t_max),
-        N, _ptr(t), _ptr(prim), *_stats_ptrs(bvh, counts, seen),
-        _stream(o.device))
-    _raise_on(rc, "closest-hit")
+        ptr(bvh["nodes"]), ptr(bvh["tris"]), ptr(o), ptr(d), ptr(t_max),
+        N, ptr(t), ptr(prim), *count_ptrs(bvh["nodes"].shape[0], counts, seen),
+        stream(o.device))
+    raise_on(rc, "BVH closest-hit")
     LAUNCHES["closest"] += 1
     return t, prim
 
@@ -228,13 +136,13 @@ def any_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_inputs(bvh, o, d, t_max, counts, seen)
-    lib = _load()
+    lib = LIB.load()
     N = o.shape[0]
     occ = torch.empty(N, dtype=torch.bool, device=o.device)
     rc = lib.lumo_bvh_any(
-        _ptr(bvh["nodes"]), _ptr(bvh["tris"]), _ptr(o), _ptr(d), _ptr(t_max),
-        N, _ptr(occ), *_stats_ptrs(bvh, counts, seen), _stream(o.device))
-    _raise_on(rc, "any-hit")
+        ptr(bvh["nodes"]), ptr(bvh["tris"]), ptr(o), ptr(d), ptr(t_max),
+        N, ptr(occ), *count_ptrs(bvh["nodes"].shape[0], counts, seen), stream(o.device))
+    raise_on(rc, "BVH any-hit")
     LAUNCHES["any"] += 1
     return occ
 
@@ -286,3 +194,112 @@ def any_hit_plain(bvh, tri, o, d, t_max=INF):
     for rs, _, t in _dense_rows(tri, o, d, t_max):
         occ[rs] |= torch.isfinite(t).any(dim=1)
     return occ
+
+
+# ---------------------------------------------------------------------------
+# the stats variant
+
+def warp_stats(per_ray):
+    """Per-ray counters (N, K) -> (ceil(N / 32), 2, K) int32: per warp of
+    32 consecutive rays the sum and the maximum over its lanes.  SIMT
+    efficiency of a counter is ``sum / (32 * max)``."""
+    N, K = per_ray.shape
+    W = (N + WARP - 1) // WARP
+    padded = torch.zeros((W * WARP, K), dtype=per_ray.dtype,
+                         device=per_ray.device)
+    padded[:N] = per_ray
+    lanes = padded.view(W, WARP, K)
+    return torch.stack([lanes.sum(1), lanes.amax(1)], dim=1).to(torch.int32)
+
+
+def closest_hit_stats(bvh, tri, o, d, t_max=INF):
+    """:func:`closest_hit` plus traversal counters -> (t, prim, stats).
+    ``stats`` is (ceil(N / 32), 2, 3) int32: for each warp of 32
+    consecutive rays the sum and the maximum over its lanes of (interior
+    nodes fetched, leaves fetched, triangles tested)."""
+    t_max = rows(t_max, o)
+    if o.device.type == "cpu":
+        return closest_hit_stats_plain(bvh, tri, o, d, t_max)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    _check_inputs(bvh, o, d, t_max, None, None)
+    lib = LIB.load()
+    N = o.shape[0]
+    t = torch.empty(N, dtype=torch.float32, device=o.device)
+    prim = torch.empty(N, dtype=torch.int64, device=o.device)
+    stats = torch.empty(((N + WARP - 1) // WARP, 2, 3), dtype=torch.int32,
+                        device=o.device)
+    rc = lib.lumo_bvh_closest_stats(
+        ptr(bvh["nodes"]), ptr(bvh["tris"]), ptr(o), ptr(d), ptr(t_max),
+        N, ptr(t), ptr(prim), ptr(stats), stream(o.device))
+    raise_on(rc, "BVH closest-hit stats")
+    LAUNCHES["stats"] += 1
+    return t, prim, stats
+
+
+def unpack_nodes(nodes):
+    """The kernel's (M, 2, 4) nodes -> (lo (M, 3), hi (M, 3), right, axis,
+    first, count (M,) int64)."""
+    words = nodes[:, :, 3].contiguous().view(torch.int32).to(torch.int64)
+    words = words & 0xFFFFFFFF
+    w0, w1 = words[:, 0], words[:, 1]
+    return (nodes[:, 0, :3], nodes[:, 1, :3], w0 >> 2, w0 & 3, w1 >> 3,
+            w1 & 7)
+
+
+def closest_hit_stats_plain(bvh, tri, o, d, t_max=INF):
+    """Plain PyTorch version of :func:`closest_hit_stats`: every lane
+    walks the packed ``bvh["nodes"]`` and ``bvh["tris"]`` as a thread of
+    the kernel does (near child first by the ray's sign on the split
+    axis, nodes pruned against the best hit inflated by 1.00000024) and
+    counts the same three things (``tri`` unused)."""
+    t_max = rows(t_max, o)
+    N, dev = o.shape[0], o.device
+    if bvh["depth"] > STACK:
+        raise ValueError(f"BVH depth {bvh['depth']} exceeds the "
+                         f"{STACK}-entry stack")
+    lo, hi, n_right, n_axis, n_first, n_count = unpack_nodes(bvh["nodes"])
+    kz, shear = ray_setup(d)
+    inv = slab_reciprocals(d)
+    offs = torch.arange(7, device=dev)
+    active = t_max > 0.0
+    node = torch.zeros(N, dtype=torch.int64, device=dev)
+    sp = torch.zeros(N, dtype=torch.int64, device=dev)
+    stack = torch.zeros((N, STACK), dtype=torch.int64, device=dev)
+    best_t = torch.full((N,), INF, dtype=o.dtype, device=dev)
+    best_p = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    stats = torch.zeros((N, 3), dtype=torch.int64, device=dev)
+    while bool(active.any()):
+        cnt = n_count[node]
+        is_leaf = cnt > 0
+        stats[:, 0] += active & ~is_leaf
+        stats[:, 1] += active & is_leaf
+        t0 = (lo[node] - o) * inv
+        t1 = (hi[node] - o) * inv
+        tn = torch.minimum(t0, t1).amax(dim=1)
+        tf = torch.maximum(t0, t1).amin(dim=1) * INFLATE
+        bound = torch.minimum(best_t, t_max)
+        hit = active & (tn <= tf) & (tf > 0.0) & (tn < bound * INFLATE)
+        inner = hit & ~is_leaf
+        in_leaf = hit & is_leaf
+        # interior: descend the near child, stack the far
+        left_first = ~(d.gather(1, n_axis[node][:, None])[:, 0] < 0.0)
+        left, right = node + 1, n_right[node]
+        stack_put(stack, sp.clamp(max=STACK - 1),
+                  torch.where(left_first, right, left), inner)
+        sp = sp + inner.to(torch.int64)
+        # leaf: test its triangles
+        if bool(in_leaf.any()):
+            valid = in_leaf[:, None] & (offs[None, :] < cnt[:, None])
+            ref = torch.where(valid, n_first[node][:, None] + offs[None, :], 0)
+            tb, pb = leaf_best(o, kz, shear, bvh["tris"], ref, valid, t_max)
+            best_t, best_p = keep_better(best_t, best_p, tb, pb, in_leaf)
+            stats[:, 2] += torch.where(in_leaf, cnt, 0)
+        # next node: the near child, or the top of the stack
+        can_pop = active & ~inner & (sp > 0)
+        sp = sp - can_pop.to(torch.int64)
+        popped = stack_take(stack, sp.clamp(0, STACK - 1))
+        node = torch.where(inner, torch.where(left_first, left, right),
+                           torch.where(can_pop, popped, node))
+        active = active & (inner | can_pop)
+    return best_t, best_p, warp_stats(stats)

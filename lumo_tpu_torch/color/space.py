@@ -46,12 +46,28 @@ def _xyz_to_rgb_matrix(r_xy, g_xy, b_xy, W) -> np.ndarray:
 
 
 class ColorSpace:
-    """A named RGB color space: XYZ->RGB matrix and white point."""
+    """A named RGB color space: XYZ->RGB matrix, white point and transfer
+    curve ('srgb' or 'rec2020')."""
 
-    def __init__(self, name, xyz_to_rgb, white):
+    def __init__(self, name, xyz_to_rgb, white, trc):
         self.name = name
         self.xyz_to_rgb = xyz_to_rgb
         self.white = white
+        self.trc = trc
+
+    def encode(self, rgb: np.ndarray) -> np.ndarray:
+        """Linear RGB (..., 3) in [0, inf) -> uint8 via the transfer curve
+        (reference ``space.rs:3-33``), rounded to nearest."""
+        c = np.asarray(rgb, dtype=np.float64)
+        if self.trc == "srgb":
+            ec = np.where(c <= 0.0031308, 12.92 * c,
+                          1.055 * np.power(np.maximum(c, 0.0), 1.0 / 2.4) - 0.055)
+        else:  # rec2020
+            beta = 0.018053968510807
+            alpha = 1.0 + 5.5 * beta
+            ec = np.where(c <= beta, 4.5 * c,
+                          alpha * np.power(np.maximum(c, 0.0), 0.45) - (alpha - 1.0))
+        return np.clip(np.rint(ec * 255.0), 0.0, 255.0).astype(np.uint8)
 
     def wb_matrix(self, illuminant: np.ndarray) -> np.ndarray:
         """Von Kries chromatic adaptation in LMS for a camera
@@ -69,7 +85,8 @@ def get(name: str = "DCI-P3") -> ColorSpace:
                  "Rec2020": ((0.708, 0.292), (0.170, 0.797), (0.131, 0.046))}
     if name not in primaries:
         raise ValueError(name)
-    return ColorSpace(name, _xyz_to_rgb_matrix(*primaries[name], W), W)
+    trc = "rec2020" if name == "Rec2020" else "srgb"
+    return ColorSpace(name, _xyz_to_rgb_matrix(*primaries[name], W), W, trc)
 
 
 def _mean4(x):

@@ -26,6 +26,15 @@
 // far, inflated by 1.00000024 as the TPU kernel does, so fp error in the
 // slab test never drops the true closest triangle.
 //
+// The stats variant (lumo_bvh_closest_stats) replaces the TPU kernel's
+// stats=True mode (pallas_bvh.py:489, behind closest_hit_stats): the same
+// closest hit plus counters of the interior nodes fetched, the leaves
+// fetched and the triangles tested.  The TPU accumulates them per 1024-ray
+// packet, its unit of divergence; on this card the unit is the warp, so
+// each thread counts in registers and the warp reduces them
+// (__reduce_add_sync, __reduce_max_sync): lane 0 writes the sum and the
+// maximum over the warp's 32 consecutive rays, (ceil(n / 32), 2, 3) int32.
+//
 // What bounds it on an H100: not bandwidth or arithmetic but the latency
 // of dependent loads.  Every step of the walk is a 32-byte node fetch
 // whose address depends on the previous one, and rays of one warp diverge
@@ -35,114 +44,14 @@
 // 327,692-triangle scene (about 21 MB of nodes and 16 MB of triangles)
 // fits in the 50 MB L2, so a walk's loads hit L2 rather than HBM.
 
-#include <cfloat>
-#include <cmath>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "woop.cuh"
 
 namespace {
 
+using namespace lumo;
+
 constexpr int kStack = 64;
 constexpr int kThreads = 128;
-
-// gamma(n) = n e / (1 - n e) with e = 2^-24 (config.gamma_bound), rounded to
-// float as torch rounds a Python scalar operand of a float32 tensor.
-constexpr double kEpsHalf = 5.9604644775390625e-08;
-constexpr float kG2 = static_cast<float>(2 * kEpsHalf / (1.0 - 2 * kEpsHalf));
-constexpr float kG3 = static_cast<float>(3 * kEpsHalf / (1.0 - 3 * kEpsHalf));
-constexpr float kG5 = static_cast<float>(5 * kEpsHalf / (1.0 - 5 * kEpsHalf));
-// conservative slab inflation (pallas_bvh.py:548-552)
-constexpr float kInflate = 1.00000024f;
-
-struct Ray {
-  float ox, oy, oz;
-  float dx, dy, dz;
-  int kz;
-  float sx, sy, sz;  // Woop shear constants (intersect.ray_setup)
-  float ix, iy, iz;  // slab reciprocals
-};
-
-// cyclic permutation moving axis kz to z (intersect._permute_axes)
-__device__ __forceinline__ void permute(float x, float y, float z, int kz,
-                                        float& px, float& py, float& pz) {
-  px = kz == 0 ? y : (kz == 1 ? z : x);
-  py = kz == 0 ? z : (kz == 1 ? x : y);
-  pz = kz == 0 ? x : (kz == 1 ? y : z);
-}
-
-// reciprocal with the +-1e-30 clamp of pallas_bvh.py:502-504
-__device__ __forceinline__ float inv_clamped(float v) {
-  const float tiny = v < 0.f ? -1e-30f : 1e-30f;
-  return 1.0f / (fabsf(v) < 1e-30f ? tiny : v);
-}
-
-__device__ __forceinline__ Ray make_ray(const float* o, const float* d,
-                                        int i) {
-  Ray r;
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  const float adx = fabsf(r.dx), ady = fabsf(r.dy), adz = fabsf(r.dz);
-  r.kz = (adx > ady && adx > adz) ? 0 : (ady > adz ? 1 : 2);
-  float dpx, dpy, dpz;
-  permute(r.dx, r.dy, r.dz, r.kz, dpx, dpy, dpz);
-  const float inv_z = 1.0f / dpz;
-  r.sx = -dpx * inv_z;
-  r.sy = -dpy * inv_z;
-  r.sz = inv_z;
-  r.ix = inv_clamped(r.dx);
-  r.iy = inv_clamped(r.dy);
-  r.iz = inv_clamped(r.dz);
-  return r;
-}
-
-__device__ __forceinline__ void shear_vertex(const Ray& r, float4 v,
-                                             float& X, float& Y, float& Z) {
-  float px, py, pz;
-  permute(v.x - r.ox, v.y - r.oy, v.z - r.oz, r.kz, px, py, pz);
-  X = px + r.sx * pz;
-  Y = py + r.sy * pz;
-  Z = r.sz * pz;
-}
-
-// Watertight Woop test, t only: intersect.triangle_t with t_min = 0.
-__device__ __forceinline__ float woop_t(const Ray& r, float4 va, float4 vb,
-                                        float4 vc, float t_max) {
-  float ax, ay, az, bx, by, bz, cx, cy, cz;
-  shear_vertex(r, va, ax, ay, az);
-  shear_vertex(r, vb, bx, by, bz);
-  shear_vertex(r, vc, cx, cy, cz);
-  const float e0 = bx * cy - by * cx;
-  const float e1 = cx * ay - cy * ax;
-  const float e2 = ax * by - ay * bx;
-  const bool miss_sign = (fminf(fminf(e0, e1), e2) < 0.f) &&
-                         (fmaxf(fmaxf(e0, e1), e2) > 0.f);
-  const float det = e0 + e1 + e2;
-  const float t_scaled = e0 * az + e1 * bz + e2 * cz;
-  const float t_min = 0.f;
-  const bool out_range =
-      det < 0.f ? (t_scaled > t_min * det || t_scaled < t_max * det)
-                : (t_scaled < t_min * det || t_scaled > t_max * det);
-  if (miss_sign || det == 0.f || out_range) return INFINITY;
-  const float t = t_scaled / det;
-  // conservative fp error bound on t (reference triangle.rs:133-153)
-  const float max_z = fmaxf(fabsf(az), fmaxf(fabsf(bz), fabsf(cz)));
-  const float max_x = fmaxf(fabsf(ax), fmaxf(fabsf(bx), fabsf(cx)));
-  const float max_y = fmaxf(fabsf(ay), fmaxf(fabsf(by), fabsf(cy)));
-  const float d_z = kG3 * max_z;
-  const float d_x = kG5 * (max_x + max_z);
-  const float d_y = kG5 * (max_y + max_z);
-  const float d_e = 2.0f * (kG2 * max_x * max_y + d_y * max_x + d_x * max_y);
-  const float max_e = fmaxf(fabsf(e0), fmaxf(fabsf(e1), fabsf(e2)));
-  const float abs_det = fmaxf(fabsf(det), FLT_MIN);
-  const float d_t =
-      3.0f * (kG3 * max_e * max_z + d_e * max_z + d_z * max_e) / abs_det;
-  return t <= t_min + d_t ? INFINITY : t;
-}
 
 // conservative slab test of a node box against (0, bound)
 __device__ __forceinline__ bool slab(const Ray& r, float4 lo, float4 hi,
@@ -158,7 +67,7 @@ __device__ __forceinline__ bool slab(const Ray& r, float4 lo, float4 hi,
   return tn <= tf && tf > 0.f && tn < bound * kInflate;
 }
 
-template <bool kAny, bool kCount>
+template <bool kAny, bool kCount, bool kStats>
 __global__ void __launch_bounds__(kThreads)
     traverse(const float4* __restrict__ nodes, const float4* __restrict__ tris,
              const float* __restrict__ o, const float* __restrict__ d,
@@ -166,14 +75,19 @@ __global__ void __launch_bounds__(kThreads)
              long long* __restrict__ prim_out, bool* __restrict__ occ_out,
              unsigned long long* __restrict__ counts,
              unsigned char* __restrict__ seen_nodes,
-             unsigned char* __restrict__ seen_tris) {
+             unsigned char* __restrict__ seen_tris,
+             int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float t_max = tmax[i];
+  // the stats variant keeps lanes past the end for its warp reductions;
+  // they count as dead lanes
+  const bool in_range = i < n;
+  if (!kStats && !in_range) return;
+  const float t_max = in_range ? tmax[i] : 0.f;
   float best_t = INFINITY;
   long long best_p = -1;
   bool occluded = false;
   unsigned long long n_nodes = 0, n_tris = 0;
+  int n_interior = 0, n_leaf = 0, n_tests = 0;
   if (t_max > 0.f) {  // dead lanes (t_max <= 0, or NaN) miss at once
     const Ray r = make_ray(o, d, i);
     int stack[kStack];
@@ -185,6 +99,13 @@ __global__ void __launch_bounds__(kThreads)
       if (kCount) {
         ++n_nodes;
         if (seen_nodes != nullptr) seen_nodes[node] = 1;
+      }
+      if (kStats) {
+        if ((__float_as_uint(hi.w) & 7u) == 0u) {
+          ++n_interior;
+        } else {
+          ++n_leaf;
+        }
       }
       const float bound = kAny ? t_max : fminf(best_t, t_max);
       if (slab(r, lo, hi, bound)) {
@@ -210,6 +131,7 @@ __global__ void __launch_bounds__(kThreads)
             ++n_tris;
             if (seen_tris != nullptr) seen_tris[p] = 1;
           }
+          if (kStats) ++n_tests;
           if (kAny) {
             if (t < INFINITY) {
               occluded = true;
@@ -227,6 +149,25 @@ __global__ void __launch_bounds__(kThreads)
       node = stack[--sp];
     }
   }
+  if (kStats) {
+    const unsigned all = 0xffffffffu;
+    const int sums[3] = {__reduce_add_sync(all, n_interior),
+                         __reduce_add_sync(all, n_leaf),
+                         __reduce_add_sync(all, n_tests)};
+    const int peaks[3] = {__reduce_max_sync(all, n_interior),
+                          __reduce_max_sync(all, n_leaf),
+                          __reduce_max_sync(all, n_tests)};
+    // a block holds whole warps of rays; a warp wholly past the end has
+    // no row
+    if ((threadIdx.x & 31) == 0 && in_range) {
+      int* row = stats + 6 * (i >> 5);
+      for (int k = 0; k < 3; ++k) {
+        row[k] = sums[k];
+        row[3 + k] = peaks[k];
+      }
+    }
+    if (!in_range) return;
+  }
   if (kAny) {
     occ_out[i] = occluded;
   } else {
@@ -243,7 +184,7 @@ template <bool kAny>
 int launch(const void* nodes, const void* tris, const void* o, const void* d,
            const void* tmax, int n, void* t_out, void* prim_out,
            void* occ_out, void* counts, void* seen_nodes, void* seen_tris,
-           void* stream) {
+           void* stats, void* stream) {
   if (n <= 0) return 0;
   const dim3 grid((n + kThreads - 1) / kThreads), block(kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -258,13 +199,17 @@ int launch(const void* nodes, const void* tris, const void* o, const void* d,
   unsigned long long* cn = static_cast<unsigned long long*>(counts);
   unsigned char* sn = static_cast<unsigned char*>(seen_nodes);
   unsigned char* st = static_cast<unsigned char*>(seen_tris);
-  if (cn != nullptr) {
-    traverse<kAny, true><<<grid, block, 0, s>>>(nd, tr, of, df, tm, n, to,
-                                                po, oc, cn, sn, st);
+  if (stats != nullptr) {
+    traverse<kAny, false, true><<<grid, block, 0, s>>>(
+        nd, tr, of, df, tm, n, to, po, oc, nullptr, nullptr, nullptr,
+        static_cast<int*>(stats));
+  } else if (cn != nullptr) {
+    traverse<kAny, true, false><<<grid, block, 0, s>>>(
+        nd, tr, of, df, tm, n, to, po, oc, cn, sn, st, nullptr);
   } else {
-    traverse<kAny, false><<<grid, block, 0, s>>>(nd, tr, of, df, tm, n, to,
-                                                 po, oc, nullptr, nullptr,
-                                                 nullptr);
+    traverse<kAny, false, false><<<grid, block, 0, s>>>(
+        nd, tr, of, df, tm, n, to, po, oc, nullptr, nullptr, nullptr,
+        nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -283,7 +228,19 @@ int lumo_bvh_closest(const void* nodes, const void* tris, const void* o,
                      void* prim_out, void* counts, void* seen_nodes,
                      void* seen_tris, void* stream) {
   return launch<false>(nodes, tris, o, d, tmax, n, t_out, prim_out, nullptr,
-                       counts, seen_nodes, seen_tris, stream);
+                       counts, seen_nodes, seen_tris, nullptr, stream);
+}
+
+// Closest hit with counters: stats (ceil(n / 32), 2, 3) int32 receives, per
+// warp of 32 consecutive rays, the sum and the maximum over its lanes of
+// the interior nodes fetched, the leaves fetched and the triangles tested.
+int lumo_bvh_closest_stats(const void* nodes, const void* tris,
+                           const void* o, const void* d, const void* tmax,
+                           int n, void* t_out, void* prim_out, void* stats,
+                           void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(nodes, tris, o, d, tmax, n, t_out, prim_out, nullptr,
+                       nullptr, nullptr, nullptr, stats, stream);
 }
 
 // Any hit: occ_out (n,) bool.
@@ -292,7 +249,7 @@ int lumo_bvh_any(const void* nodes, const void* tris, const void* o,
                  void* counts, void* seen_nodes, void* seen_tris,
                  void* stream) {
   return launch<true>(nodes, tris, o, d, tmax, n, nullptr, nullptr, occ_out,
-                      counts, seen_nodes, seen_tris, stream);
+                      counts, seen_nodes, seen_tris, nullptr, stream);
 }
 
 }  // extern "C"

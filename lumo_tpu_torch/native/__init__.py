@@ -1,11 +1,11 @@
-"""Native (C++) host BVH builder, loaded with ctypes.
+"""Native (C++) host accelerator builders, loaded with ctypes.
 
-Counterpart of ``lumo_tpu/native/__init__.py`` (the BVH entry point
-only).  ``bvh_builder.cpp`` is this package's own copy of the threaded
-binned-SAH builder; it is compiled with g++ at first use into the
-repository's ``build/`` directory.  A 327k-triangle build in numpy takes
-minutes, so a scene that large needs this library: a failed compile
-raises.
+Counterpart of ``lumo_tpu/native/__init__.py``.  ``bvh_builder.cpp`` and
+``kdtree_builder.cpp`` are this package's own copies of the threaded
+binned-SAH BVH builder and the Wald-Havran SAH kd-tree builder; each is
+compiled with g++ at first use into its own library in the repository's
+``build/`` directory.  A 327k-triangle build in numpy takes minutes, so a
+scene that large needs these libraries: a failed compile raises.
 """
 from __future__ import annotations
 
@@ -17,53 +17,68 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "bvh_builder.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build")
-_SO = os.path.join(BUILD_DIR, "liblumo_bvh_builder.so")
+_libs: dict = {}
+
+_F = ctypes.POINTER(ctypes.c_float)
+_I = ctypes.POINTER(ctypes.c_int32)
+_L = ctypes.POINTER(ctypes.c_int64)
+_ARGTYPES = {
+    "bvh": ("lumo_build_bvh",
+            [_F, _F, ctypes.c_int64, _F, _F, _I, _I, _I, _I, _I, _L, _I]),
+    "kdtree": ("lumo_build_kdtree",
+               [_F, _F, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                _F, _I, _I, _I, _I, _I, _F, _F, _L, _L, _I]),
+}
 _lock = threading.Lock()
-_lib = None
 
 
-def _compile():
+def _paths(which: str):
+    return (os.path.join(_DIR, f"{which}_builder.cpp"),
+            os.path.join(BUILD_DIR, f"liblumo_{which}_builder.so"))
+
+
+def _compile(src: str, so: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-pthread", _SRC, "-o", tmp]
+           "-pthread", src, "-o", tmp]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {_SRC}:\n{res.stderr}")
-    os.replace(tmp, _SO)
+        raise RuntimeError(f"g++ failed to build {src}:\n{res.stderr}")
+    os.replace(tmp, so)
 
 
-def load():
-    """The ctypes library, compiled first if missing or stale."""
-    global _lib
+def load(which: str = "bvh"):
+    """The ctypes library of builder ``which`` ("bvh" or "kdtree"),
+    compiled first if missing or stale."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            _compile()
-        lib = ctypes.CDLL(_SO)
-        lib.lumo_build_bvh.restype = ctypes.c_int
-        lib.lumo_build_bvh.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int32),
-        ]
-        _lib = lib
-        return _lib
+        if which in _libs:
+            return _libs[which]
+        src, so = _paths(which)
+        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+            _compile(src, so)
+        lib = ctypes.CDLL(so)
+        name, argtypes = _ARGTYPES[which]
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = argtypes
+        _libs[which] = lib
+        return lib
+
+
+def _fp(a):
+    return a.ctypes.data_as(_F)
+
+
+def _ip(a):
+    return a.ctypes.data_as(_I)
 
 
 def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray):
     """Native binned-SAH build over per-primitive AABBs (P, 3).  Returns
     (node_lo, node_hi, node_right, node_first, node_count, node_axis,
     order, max_depth), the layout of ``accel.build.BVH``."""
-    lib = load()
+    lib = load("bvh")
     P = len(prim_lo)
     lo = np.ascontiguousarray(prim_lo, np.float32)
     hi = np.ascontiguousarray(prim_hi, np.float32)
@@ -77,15 +92,55 @@ def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray):
     order = np.empty(P, np.int32)
     n_nodes = ctypes.c_int64(0)
     max_depth = ctypes.c_int32(0)
-    fp = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    ip = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
     rc = lib.lumo_build_bvh(
-        fp(lo), fp(hi), ctypes.c_int64(P),
-        fp(node_lo), fp(node_hi), ip(node_right), ip(node_first),
-        ip(node_count), ip(node_axis), ip(order),
+        _fp(lo), _fp(hi), ctypes.c_int64(P),
+        _fp(node_lo), _fp(node_hi), _ip(node_right), _ip(node_first),
+        _ip(node_count), _ip(node_axis), _ip(order),
         ctypes.byref(n_nodes), ctypes.byref(max_depth))
     if rc != 0:
         raise RuntimeError(f"native BVH build failed ({rc}) for {P} prims")
     M = n_nodes.value
     return (node_lo[:M], node_hi[:M], node_right[:M], node_first[:M],
             node_count[:M], node_axis[:M], order, int(max_depth.value))
+
+
+def build_kdtree(prim_lo: np.ndarray, prim_hi: np.ndarray):
+    """Native Wald-Havran SAH kd-tree build over per-primitive AABBs
+    (P, 3).  Returns (split, axis, right, first, count, prims, root_lo,
+    root_hi, max_depth), the fields of ``accel.kdtree.KdTree``.  The
+    output buffers grow fourfold (twice at most) when the library reports
+    them too small."""
+    lib = load("kdtree")
+    P = len(prim_lo)
+    lo = np.ascontiguousarray(prim_lo, np.float32)
+    hi = np.ascontiguousarray(prim_hi, np.float32)
+    node_cap = max(8 * P, 64)
+    ref_cap = max(16 * P, 1024)
+    for _ in range(3):
+        split = np.empty(node_cap, np.float32)
+        axis = np.empty(node_cap, np.int32)
+        right = np.empty(node_cap, np.int32)
+        first = np.empty(node_cap, np.int32)
+        count = np.empty(node_cap, np.int32)
+        prims = np.empty(ref_cap, np.int32)
+        root_lo = np.empty(3, np.float32)
+        root_hi = np.empty(3, np.float32)
+        n_nodes = ctypes.c_int64(0)
+        n_refs = ctypes.c_int64(0)
+        max_depth = ctypes.c_int32(0)
+        rc = lib.lumo_build_kdtree(
+            _fp(lo), _fp(hi), ctypes.c_int64(P),
+            ctypes.c_int64(node_cap), ctypes.c_int64(ref_cap),
+            _fp(split), _ip(axis), _ip(right), _ip(first), _ip(count),
+            _ip(prims), _fp(root_lo), _fp(root_hi),
+            ctypes.byref(n_nodes), ctypes.byref(n_refs),
+            ctypes.byref(max_depth))
+        if rc == 0:
+            M, R = n_nodes.value, n_refs.value
+            return (split[:M], axis[:M], right[:M], first[:M], count[:M],
+                    prims[:R], root_lo, root_hi, int(max_depth.value))
+        if rc != 2:       # 2: node_cap or ref_cap exceeded
+            break
+        node_cap *= 4
+        ref_cap *= 4
+    raise RuntimeError(f"native kd-tree build failed ({rc}) for {P} prims")

@@ -5,14 +5,17 @@ triangle scenes.  Scenes of ``BVH_THRESHOLD`` triangles or more get a
 binned-SAH BVH whose leaf order the triangle arrays are permuted into;
 dominant-area triangles (room walls) are split out of the BVH and kept at
 the tail ``[n_bvh_tris, n_tris)``, where ``trace`` tests them densely.
-Lights get a Walker alias table (reference ``bvh.rs:104-191``) built on
-the host.
+With ``accel="kdtree"`` they get a Wald-Havran SAH kd-tree instead
+(reference ``Mesh = KdTree``): the triangle order is untouched, the walls
+stay inside the tree, and the tree is kept on the device only in the CUDA
+kernel's layout (``accel/kd_kernel.py``).  Lights get a Walker alias table
+(reference ``bvh.rs:104-191``) built on the host.
 
-The BVH is kept twice on the device: as the builder's binary DFS tables
-(``lo, hi, right, first, count, axis``, identical to the JAX package's)
-and repacked for the CUDA traversal kernel (``nodes``, ``tris``; see
-``accel/bvh_kernel.py``).  The TPU's block layout (``pack_blocks``) has no
-counterpart here.
+The BVH is kept on the device only as repacked for the CUDA traversal
+kernel (``nodes``, ``tris``; see ``accel/bvh_kernel.py``): the builder's
+binary DFS tables (``lo, hi, right, first, count, axis``, identical to the
+JAX package's) stay on the host and go through ``pack_nodes``.  The TPU's
+block layout (``pack_blocks``) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ BVH_THRESHOLD = 64  # brute-force below this many triangles
 
 TRI_KEYS = ("a", "b", "c", "na", "nb", "nc", "uva", "uvb", "uvc")
 BVH_KEYS = ("lo", "hi", "right", "first", "count", "axis")
+KD_KEYS = ("split", "axis", "right", "first", "count", "prims", "lo", "hi")
 
 
 def _not_ported(what: str, item: int):
@@ -60,6 +64,7 @@ class SceneData:
     prim_light: torch.Tensor   # (P,) light index per prim, -1 if none
     materials: dict            # name -> (M, ...) tensor
     bvh: Optional[dict]        # "nodes", "tris" (kernel layout), "depth"
+    kdtree: Optional[dict]     # "nodes", "tris", "root" (kernel layout), "depth"
     bounds: torch.Tensor       # (2, 3)
     n_tris: int
     n_bvh_tris: int            # [0, n_bvh_tris) are under the BVH
@@ -79,8 +84,9 @@ class SceneData:
         repl = {f.name: mv(getattr(self, f.name))
                 for f in dataclasses.fields(self)}
         repl["materials"] = {k: mv(v) for k, v in self.materials.items()}
-        if self.bvh is not None:
-            repl["bvh"] = {k: mv(v) for k, v in self.bvh.items()}
+        for name in ("bvh", "kdtree"):
+            if getattr(self, name) is not None:
+                repl[name] = {k: mv(v) for k, v in getattr(self, name).items()}
         return SceneData(**repl)
 
 
@@ -197,11 +203,10 @@ class SceneBuilder:
     def build(self, dtype=np.float32, accel: str = "bvh",
               device=None) -> SceneData:
         """Pack the device scene on ``device`` (the card when ``None``).
-        ``accel``: "bvh" (default) or "none" (brute force)."""
+        ``accel``: "bvh" (default), "kdtree" (reference-style SAH
+        kd-tree over the triangle soup) or "none" (brute force)."""
         device = resolve_device(device)
-        if accel == "kdtree":
-            raise _not_ported("the kd-tree accelerator", 10)
-        if accel not in ("bvh", "none"):
+        if accel not in ("bvh", "kdtree", "none"):
             raise ValueError(f"unknown accel {accel!r}")
         self._check_materials()
 
@@ -219,6 +224,7 @@ class SceneBuilder:
         T = len(tri["a"])
 
         bvh = None
+        kdt = None
         T_bvh = T
         if T >= BVH_THRESHOLD and accel == "bvh":
             from lumo_tpu_torch.accel import build as accel_build
@@ -249,6 +255,17 @@ class SceneBuilder:
             tri = {k: v[order] for k, v in tri.items()}
             tri_mat = tri_mat[order]
             tri_is_light = tri_is_light[order]
+        elif T >= BVH_THRESHOLD and accel == "kdtree":
+            from lumo_tpu_torch.accel import build as accel_build
+            from lumo_tpu_torch.accel import kdtree as accel_kd
+            t0 = time.perf_counter()
+            lo_t, hi_t = accel_build.triangle_bounds(
+                tri["a"], tri["b"], tri["c"])
+            kdt = accel_kd.build(lo_t, hi_t)
+            el = time.perf_counter() - t0
+            if el > 0.05:
+                print(f"kd-tree: {T} tris, {len(kdt.axis)} nodes, "
+                      f"{len(kdt.prims)} references in {el:.2f}s", flush=True)
 
         # lights + alias table (power = area x material power,
         # reference ``bvh.rs:104-191``)
@@ -278,7 +295,13 @@ class SceneBuilder:
                       "right": bvh.node_right, "first": bvh.node_first,
                       "count": bvh.node_count, "axis": bvh.node_axis,
                       "depth": bvh.depth}
-        return from_numpy(fields, bvh_np, device, dtype=dtype)
+        kd_np = None
+        if kdt is not None:
+            kd_np = {"split": kdt.split, "axis": kdt.axis, "right": kdt.right,
+                     "first": kdt.first, "count": kdt.count,
+                     "prims": kdt.prims, "lo": kdt.root_lo, "hi": kdt.root_hi,
+                     "depth": kdt.max_depth}
+        return from_numpy(fields, bvh_np, device, dtype=dtype, kd=kd_np)
 
     def _host_bounds(self):
         lo = np.full(3, np.inf)
@@ -306,7 +329,7 @@ def _bvh_depth(right: np.ndarray, count: np.ndarray) -> int:
 
 
 def from_numpy(fields: dict, bvh: Optional[dict], device=None,
-               dtype=np.float32) -> SceneData:
+               dtype=np.float32, kd: Optional[dict] = None) -> SceneData:
     """Build a :class:`SceneData` on ``device`` (the card when ``None``)
     from host arrays, e.g. those of a JAX-built scene converted with
     ``np.asarray``: ``fields`` holds ``tri_{a,b,c,na,nb,nc,uva,uvb,uvc}``,
@@ -315,9 +338,12 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     the packed material table); ``bvh`` holds the binary tables
     ``lo, hi, right, first, count, axis`` (and optionally ``depth``) or is
     ``None`` for a brute-force scene, and is kept only in the kernel's
-    layout (``bvh_kernel.pack_nodes``/``pack_tris``).  The values go
-    through unchanged; index tables widen to int64."""
-    from lumo_tpu_torch.accel import bvh_kernel
+    layout (``bvh_kernel.pack_nodes``/``pack_tris``); ``kd`` holds the
+    flat kd-tree tables ``split, axis, right, first, count, prims, lo, hi``
+    (and optionally ``depth``) of a scene built with ``accel="kdtree"``
+    and is kept only in the kd kernel's layout (``kd_kernel.pack_kd``).
+    The values go through unchanged; index tables widen to int64."""
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
     device = resolve_device(device)
 
     def tens(x):
@@ -348,6 +374,18 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
                 *(np.asarray(fields[f"tri_{k}"], np.float32)[:T_bvh]
                   for k in "abc"))),
             "depth": depth}
+    kd_dev = None
+    if kd is not None:
+        if bvh is not None:
+            raise ValueError("a scene has a BVH or a kd-tree, not both")
+        k = {key: np.asarray(kd[key]) for key in KD_KEYS}
+        packed = kd_kernel.pack_kd(
+            k, *(np.asarray(fields[f"tri_{v}"], np.float32) for v in "abc"))
+        kd_dev = {
+            "nodes": torch.as_tensor(packed["nodes"], device=device),
+            "tris": tens(packed["tris"]), "root": tens(packed["root"]),
+            "depth": int(kd["depth"]) if "depth" in kd else
+            kd_kernel.kd_depth(k["axis"], k["right"])}
     return SceneData(
         **{f"tri_{k}": tens(fields[f"tri_{k}"]) for k in TRI_KEYS},
         tri_mat=tens(fields["tri_mat"]),
@@ -358,6 +396,7 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
         prim_light=tens(fields["prim_light"]),
         materials={k: tens(v) for k, v in fields["materials"].items()},
         bvh=bvh_dev,
+        kdtree=kd_dev,
         bounds=tens(fields["bounds"]),
         n_tris=T, n_bvh_tris=T_bvh if bvh is not None else T,
         n_lights=L,

@@ -6,14 +6,16 @@ Counterpart of the triangle parts of ``lumo_tpu/scene/trace.py``
 Sampleable light methods, ``triangle.rs:215-241``).  Small scenes are
 tested densely; BVH scenes go through ``accel.bvh_kernel`` (the CUDA
 kernel on the card), with the split-out walls tested densely first so
-that every walk starts pruned.  Plain indexing replaces the JAX package's
+that every walk starts pruned; kd-tree scenes go through
+``accel.kd_kernel`` and keep their walls in the tree.  Plain indexing replaces the JAX package's
 one-hot gathers.  The traversal is not differentiated.
 """
 from __future__ import annotations
 
 import torch
 
-from lumo_tpu_torch.accel import bvh_kernel
+from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+from lumo_tpu_torch.accel.walk import rows
 from lumo_tpu_torch.color import dense, uplift
 from lumo_tpu_torch.config import INF
 from lumo_tpu_torch.geometry import intersect as geo
@@ -39,9 +41,12 @@ def _wall_t(scene: SceneData, o, d, t_max):
 
 
 def _closest(scene: SceneData, o, d, t_max):
-    """(t, global prim id) closest hit: BVH traversal when built, dense
-    otherwise (prim 0 with t = INF on a miss)."""
-    t_max = bvh_kernel.rows(t_max, o)
+    """(t, global prim id) closest hit: kd-tree or BVH traversal when
+    built, dense otherwise (prim 0 with t = INF on a miss)."""
+    t_max = rows(t_max, o)
+    if scene.kdtree is not None:
+        t, p = kd_kernel.closest_hit(scene.kdtree, o, d, t_max)
+        return t, torch.where(p < 0, 0, p)
     if scene.bvh is None:
         kz, shear = geo.ray_setup(d)
         ts, _, _ = geo.triangle_t(o, kz, shear, scene.tri_a[None],
@@ -72,7 +77,7 @@ def intersect(scene: SceneData, o, d, t_max=None, alive=None):
     """Closest hit for a wavefront; o, d (N, 3).  Dead lanes (``alive``
     false) get t_max 0 and return a miss.  Returns a hit dict."""
     N = o.shape[0]
-    t_max = bvh_kernel.rows(INF if t_max is None else t_max, o)
+    t_max = rows(INF if t_max is None else t_max, o)
     if alive is not None:
         t_max = torch.where(alive, t_max, 0.0)
     t, prim = _closest(scene, o, d, t_max)
@@ -99,7 +104,9 @@ def intersect(scene: SceneData, o, d, t_max=None, alive=None):
 def occluded(scene: SceneData, o, d, t_max):
     """Any hit within (0, t_max); t_max (N,).  Rays the split-out walls
     already block enter the walk dead (t_max 0)."""
-    t_max = bvh_kernel.rows(t_max, o)
+    t_max = rows(t_max, o)
+    if scene.kdtree is not None:
+        return kd_kernel.any_hit(scene.kdtree, o, d, t_max)
     if scene.bvh is None:
         kz, shear = geo.ray_setup(d)
         ts, _, _ = geo.triangle_t(o, kz, shear, scene.tri_a[None],

@@ -12,6 +12,7 @@ SCENE_FIELDS = ("tri_a", "tri_b", "tri_c", "tri_na", "tri_nb", "tri_nc",
                 "tri_uva", "tri_uvb", "tri_uvc", "tri_mat", "light_prim",
                 "light_pdf", "alias_p", "alias_idx", "prim_light", "bounds")
 BVH_KEYS = ("lo", "hi", "right", "first", "count", "axis")
+KD_KEYS = ("split", "axis", "right", "first", "count", "prims", "lo", "hi")
 
 BLOB_SEED = 11
 
@@ -47,10 +48,43 @@ def jax_scene_arrays(js):
     return fields, bvh
 
 
+def jax_kd_arrays(js):
+    """The flat kd tables of a JAX SceneData built with ``accel="kdtree"``
+    as ``from_numpy(..., kd=...)`` takes them, else None."""
+    if js.kdtree is None:
+        return None
+    return {k: np.asarray(js.kdtree[k]) for k in KD_KEYS}
+
+
 def port_scene_from_jax(js):
     from lumo_tpu_torch.scene import scene as tscene
     fields, bvh = jax_scene_arrays(js)
-    return tscene.from_numpy(fields, bvh, "cpu")
+    return tscene.from_numpy(fields, bvh, "cpu", kd=jax_kd_arrays(js))
+
+
+def soup(T, seed=0):
+    """A random triangle soup: a, b, c (T, 3) float32."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1, 1, (T, 3)).astype(np.float32)
+    b = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
+    c = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
+    return a, b, c
+
+
+def soup_rays(N, seed, dead=True):
+    """Rays through the soup's box: o, d (N, 3), t_max (N,) float32; with
+    ``dead`` an eighth of the lanes have t_max 0 and three eighths a
+    finite t_max."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    d = rng.normal(size=(N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full(N, np.inf, np.float32)
+    if dead:
+        t_max[: N // 8] = 0.0
+        t_max[N // 8: N // 2] = rng.uniform(0.05, 3.0, N // 2 - N // 8)
+        rng.shuffle(t_max)
+    return o, d, t_max
 
 
 def rays_into_box(N, seed):

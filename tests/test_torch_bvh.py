@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import soup as _soup
+from _torch_port import soup_rays as _rays
 from lumo_tpu.accel import build as jbuild
 from lumo_tpu.accel import pallas_bvh
 from lumo_tpu.accel import traverse
@@ -21,14 +23,6 @@ from lumo_tpu_torch.accel import build as tbuild
 from lumo_tpu_torch.accel import bvh_kernel
 
 N_RAYS = 257
-
-
-def _soup(T, seed=0):
-    rng = np.random.default_rng(seed)
-    a = rng.uniform(-1, 1, (T, 3)).astype(np.float32)
-    b = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
-    c = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
-    return a, b, c
 
 
 def _tables(bvh):
@@ -41,19 +35,6 @@ def _port_bvh(tabs, a, b, c, depth):
     return {"nodes": torch.as_tensor(bvh_kernel.pack_nodes(tabs)),
             "tris": torch.as_tensor(bvh_kernel.pack_tris(a, b, c)),
             "depth": depth}
-
-
-def _rays(N, seed, dead=True):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_max = np.full(N, np.inf, np.float32)
-    if dead:
-        t_max[: N // 8] = 0.0                              # dead lanes
-        t_max[N // 8: N // 2] = rng.uniform(0.05, 3.0, N // 2 - N // 8)
-        rng.shuffle(t_max)
-    return o, d, t_max
 
 
 def _compare_closest(t_ref, p_ref, t_got, p_got, dead, ulps=0):
@@ -217,3 +198,41 @@ def test_wrapper_rejects_other_devices():
         bvh_kernel.closest_hit(port, None, o, o, 1.0)
     with pytest.raises(ValueError, match="unsupported device"):
         bvh_kernel.any_hit(port, None, o, o, 1.0)
+
+
+@pytest.mark.parametrize("T", [500, 3000])
+def test_stats_walk_matches_dense_and_counts(T):
+    """``closest_hit_stats`` on the CPU walks the packed nodes and
+    triangles the CUDA kernel reads: the same t (bit-equal) and prims as
+    the dense plain version, and per-warp counters that are positive where
+    a warp has a live lane and zero where all its lanes are dead."""
+    a, b, c = _soup(T, seed=3)
+    bvh = tbuild.build(*tbuild.triangle_bounds(a, b, c))
+    ap, bp, cp = a[bvh.order], b[bvh.order], c[bvh.order]
+    port = _port_bvh(_tables(bvh), ap, bp, cp, bvh.depth)
+    tri = tuple(torch.as_tensor(x) for x in (ap, bp, cp))
+    o, d, t_max = _rays(N_RAYS, seed=T + 7)
+    t_max[:64] = 0.0                            # two whole warps dead
+    ot, dt, tt = (torch.as_tensor(x) for x in (o, d, t_max))
+    t_s, p_s, stats = bvh_kernel.closest_hit_stats(port, tri, ot, dt, tt)
+    t_d, p_d = bvh_kernel.closest_hit_plain(port, tri, ot, dt, tt)
+    assert torch.equal(t_s.view(torch.int32), t_d.view(torch.int32))
+    assert torch.equal(p_s, p_d)
+    assert int((p_s >= 0).sum()) >= 10
+    W = (N_RAYS + 31) // 32
+    assert stats.shape == (W, 2, 3) and stats.dtype == torch.int32
+    total, peak = stats[:, 0], stats[:, 1]
+    assert not bool(stats[:2].any())            # dead warps count nothing
+    live = torch.as_tensor(t_max > 0).float()
+    lanes = torch.zeros(W * 32).index_put_((torch.arange(N_RAYS),), live)
+    has_live = lanes.view(W, 32).sum(1) > 0
+    # every live lane fetches the root, an interior node
+    assert bool((total[has_live, 0] > 0).all())
+    assert bool((peak <= total).all()) and bool((total <= 32 * peak).all())
+    assert int(total[:, 1].sum()) > 0 and int(total[:, 2].sum()) > 0
+    # a leaf holds at most LEAF_SIZE triangles
+    assert bool((total[:, 2] <= tbuild.LEAF_SIZE * total[:, 1]).all())
+    # a deeper tree than the stack is rejected
+    with pytest.raises(ValueError, match="depth"):
+        bvh_kernel.closest_hit_stats(dict(port, depth=bvh_kernel.STACK + 1),
+                                     tri, ot, dt, tt)

@@ -1,6 +1,6 @@
-"""The CUDA kernel against its plain version, on a card.
+"""The CUDA kernels against their plain versions, on a card.
 
-The kernel has no CPU mode, so every test here is marked ``cuda`` and
+The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips where torch sees no card.  The file imports neither JAX nor
 lumo_tpu, so it runs on a machine with only the port's dependencies:
 
@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import blob_box, rays_into_box
+from _torch_port import blob_box, rays_into_box, soup, soup_rays
 from lumo_tpu_torch.accel import build as tbuild
-from lumo_tpu_torch.accel import bvh_kernel
+from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+from lumo_tpu_torch.accel import kdtree as tkd
+from lumo_tpu_torch.tools import exp_sync
 
 pytestmark = pytest.mark.cuda
 
@@ -29,25 +31,7 @@ def card():
     return torch.device("cuda")
 
 
-def _soup_rays(T, N, seed):
-    rng = np.random.default_rng(seed)
-    a = rng.uniform(-1, 1, (T, 3)).astype(np.float32)
-    b = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
-    c = a + rng.uniform(-0.25, 0.25, (T, 3)).astype(np.float32)
-    o = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_max = np.full(N, np.inf, np.float32)
-    t_max[: N // 8] = 0.0                                  # dead lanes
-    t_max[N // 8: N // 2] = rng.uniform(0.05, 3.0, N // 2 - N // 8)
-    rng.shuffle(t_max)
-    return (a, b, c), (o, d, t_max)
-
-
-def test_kernel_matches_plain(card):
-    """Prims exact and t bit-equal on a random soup with dead and seeded
-    lanes; one launch counted per call."""
-    (a, b, c), rays = _soup_rays(3000, 65536, seed=7)
+def _port_bvh(a, b, c, card):
     bvh = tbuild.build(*tbuild.triangle_bounds(a, b, c))
     ap, bp, cp = a[bvh.order], b[bvh.order], c[bvh.order]
     tabs = {"lo": bvh.node_lo, "hi": bvh.node_hi, "right": bvh.node_right,
@@ -58,8 +42,15 @@ def test_kernel_matches_plain(card):
             "tris": torch.as_tensor(bvh_kernel.pack_tris(ap, bp, cp),
                                     device=card),
             "depth": bvh.depth}
-    tri = tuple(torch.as_tensor(x, device=card) for x in (ap, bp, cp))
-    o, d, t_max = (torch.as_tensor(x, device=card) for x in rays)
+    return port, tuple(torch.as_tensor(x, device=card) for x in (ap, bp, cp))
+
+
+def test_kernel_matches_plain(card):
+    """Prims exact and t bit-equal on a random soup with dead and seeded
+    lanes; one launch counted per call."""
+    port, tri = _port_bvh(*soup(3000, seed=7), card)
+    o, d, t_max = (torch.as_tensor(x, device=card)
+                   for x in soup_rays(65536, seed=7))
     before = dict(bvh_kernel.LAUNCHES)
     t_k, p_k = bvh_kernel.closest_hit(port, tri, o, d, t_max)
     occ_k = bvh_kernel.any_hit(port, tri, o, d, t_max)
@@ -100,7 +91,7 @@ def test_render_through_kernel_matches_plain(card):
     before = dict(bvh_kernel.LAUNCHES)
     r_k, _, dep_k, pr_k = path_trace.integrate(scene, o, d, lam,
                                                ray_key=key, trace_prims=True)
-    assert all(bvh_kernel.LAUNCHES[k] > before[k] for k in before)
+    assert all(bvh_kernel.LAUNCHES[k] > before[k] for k in ("closest", "any"))
     with mock.patch.object(bvh_kernel, "closest_hit",
                            bvh_kernel.closest_hit_plain), \
             mock.patch.object(bvh_kernel, "any_hit", bvh_kernel.any_hit_plain):
@@ -111,3 +102,109 @@ def test_render_through_kernel_matches_plain(card):
     assert torch.equal(dep_k, dep_p)
     torch.testing.assert_close(r_k, r_p, rtol=1e-5, atol=1e-7)
     assert float(r_k.sum()) > 0.0
+
+
+def test_stats_kernel_matches_plain_walk(card):
+    """K2 stats: t, prim and every per-warp counter equal the per-lane
+    plain walk over the same packed tables, and the closest-hit entry.
+    8,201 rays end in a warp of 9 lanes and leave the last block two
+    warps without a ray."""
+    a, b, c = soup(3000, seed=7)
+    port, tri = _port_bvh(a, b, c, card)
+    o, d, t_max = (torch.as_tensor(x, device=card)
+                   for x in soup_rays(8201, seed=8))
+    before = bvh_kernel.LAUNCHES["stats"]
+    t_k, p_k, s_k = bvh_kernel.closest_hit_stats(port, tri, o, d, t_max)
+    assert bvh_kernel.LAUNCHES["stats"] == before + 1
+    t_p, p_p, s_p = bvh_kernel.closest_hit_stats_plain(port, tri, o, d, t_max)
+    t_c, p_c = bvh_kernel.closest_hit(port, tri, o, d, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert s_k.shape == (257, 2, 3) and s_k.dtype == torch.int32
+    assert torch.equal(p_k, p_p) and torch.equal(s_k, s_p)
+    assert torch.equal(t_k, t_c) and torch.equal(p_k, p_c)
+    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    bvh_kernel.closest_hit(port, tri, o, d, t_max, counts=counts)
+    total = s_k[:, 0].sum(0).tolist()
+    assert [total[0] + total[1], total[2]] == counts.tolist()
+
+
+def test_kd_kernel_matches_plain_walk(card):
+    """K3: t bit-equal and prims equal to the plain walk over the same
+    packed tables, every occlusion flag equal, t bit-equal to the dense
+    test; dead lanes, finite t_max and rays lying in a split plane."""
+    a, b, c = soup(3000, seed=11)
+    kd = tkd.build(*tbuild.triangle_bounds(a, b, c))
+    tabs = {"split": kd.split, "axis": kd.axis, "right": kd.right,
+            "first": kd.first, "count": kd.count, "prims": kd.prims,
+            "lo": kd.root_lo, "hi": kd.root_hi}
+    port = {k: torch.as_tensor(v, device=card)
+            for k, v in kd_kernel.pack_kd(tabs, a, b, c).items()}
+    port["depth"] = kd.max_depth
+    o, d, t_max = soup_rays(32768, seed=12)
+    inner = np.nonzero(kd.axis != 3)[0][:64]
+    for i, node in enumerate(inner):            # rays in split planes
+        o[i, kd.axis[node]] = kd.split[node]
+        d[i, kd.axis[node]] = 0.0
+        d[i] /= np.linalg.norm(d[i])
+        t_max[i] = np.inf
+    o, d, t_max = (torch.as_tensor(x, device=card) for x in (o, d, t_max))
+    tri = tuple(torch.as_tensor(x, device=card) for x in (a, b, c))
+    before = dict(kd_kernel.LAUNCHES)
+    t_k, p_k = kd_kernel.closest_hit(port, o, d, t_max)
+    occ_k = kd_kernel.any_hit(port, o, d, t_max)
+    assert kd_kernel.LAUNCHES == {"closest": before["closest"] + 1,
+                                  "any": before["any"] + 1}
+    t_p, p_p = kd_kernel.closest_hit_plain(port, o, d, t_max)
+    occ_p = kd_kernel.any_hit_plain(port, o, d, t_max)
+    t_d, p_d = bvh_kernel.closest_hit_plain(None, tri, o, d, t_max)
+    torch.cuda.synchronize()
+    assert int((p_k >= 0).sum()) > 1000
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, p_k >= 0)
+    assert torch.equal(t_k.view(torch.int32), t_d.view(torch.int32))
+    assert int((p_k != p_d).sum()) <= 8         # ties of equal t only
+    M, R = port["nodes"].shape[0], port["tris"].shape[0]
+    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    seen = torch.zeros(M + R, dtype=torch.uint8, device=card)
+    t_c, p_c = kd_kernel.closest_hit(port, o, d, t_max, counts=counts,
+                                     seen=seen)
+    assert torch.equal(p_c, p_k) and torch.equal(t_c, t_k)
+    n_nodes, n_tris = counts.tolist()
+    assert 0 < int(seen[:M].sum()) <= min(M, n_nodes)
+    assert 0 < int(seen[M:].sum()) <= min(R, n_tris)
+    with pytest.raises(ValueError, match="depth"):
+        kd_kernel.closest_hit(dict(port, depth=kd_kernel.STACK + 1), o, d,
+                              t_max)
+
+
+def test_kd_render_through_kernel_matches_plain(card):
+    """A kd scene through the Renderer with the kernel and with the plain
+    walk: the same image but for the order of the film's atomic adds."""
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.renderer import Renderer
+    scene = blob_box("lumo_tpu_torch", 2).build(accel="kdtree", device=card)
+    cam = build_camera(resolution=(32, 32), device=card)
+    before = dict(kd_kernel.LAUNCHES)
+    img_k = Renderer(scene, cam).samples(2).render(verbose=False)
+    assert all(kd_kernel.LAUNCHES[k] > before[k] for k in before)
+    with mock.patch.object(kd_kernel, "closest_hit",
+                           kd_kernel.closest_hit_plain), \
+            mock.patch.object(kd_kernel, "any_hit", kd_kernel.any_hit_plain):
+        img_p = Renderer(scene, cam).samples(2).render(verbose=False)
+    np.testing.assert_allclose(img_k, img_p, rtol=1e-5, atol=1e-6)
+    assert float(img_k.mean()) > 0.01
+
+
+@pytest.mark.parametrize("variant", exp_sync.VARIANTS)
+def test_exp_sync_kernel_matches_plain(card, variant):
+    """K4: every variant's output bit-equal to the plain loop at 1,000
+    trips."""
+    x = torch.full(exp_sync.TILE, 0.5, device=card)
+    before = exp_sync.LAUNCHES["exp_sync"]
+    out_k = exp_sync.run(variant, x, 1000)
+    assert exp_sync.LAUNCHES["exp_sync"] == before + 1
+    out_p = exp_sync.run_plain(variant, x, 1000)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))

@@ -10,6 +10,7 @@ import torch
 
 from _torch_port import SCENE_FIELDS
 from lumo_tpu_torch.camera import build_camera
+from lumo_tpu_torch.renderer import Renderer
 from lumo_tpu_torch.scene import scene as tscene
 from lumo_tpu_torch.scene.cornell import empty_box
 from lumo_tpu_torch.scene.materials import Material
@@ -39,7 +40,7 @@ def test_port_imports_neither_jax_nor_lumo_tpu():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25     # every module was imported
+    assert int(res.stdout.split()[-1]) >= 38     # every module was imported
 
 
 def _box():
@@ -70,3 +71,20 @@ def test_entry_points_default_to_the_card(entry):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             calls[entry]()
+
+
+def test_renderer_never_defaults_to_the_cpu():
+    """A scene built without a card raises, so no ``Renderer`` comes to
+    run on the CPU unasked; one built on the CPU on request renders there,
+    and a camera on another device than the scene is refused."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Renderer(_box().build(), build_camera(resolution=(8, 8)))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _box().build(accel="kdtree")
+    scene = _box().build(device="cpu")
+    img = Renderer(scene, build_camera(resolution=(8, 8), device="cpu")) \
+        .samples(1).fixed_rr_delta(1.0).render(verbose=False)
+    assert img.shape == (8, 8, 3)
+    with pytest.raises(ValueError, match="camera is on"):
+        Renderer(scene, build_camera(resolution=(8, 8), device="meta"))

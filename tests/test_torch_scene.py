@@ -79,7 +79,14 @@ def test_small_scene_stays_dense():
     assert ts.bvh is None and ts.n_bvh_tris == ts.n_tris < 64
 
 
-@pytest.mark.parametrize("what", ["sphere", "glass", "kdtree", "medium"])
+def test_kdtree_scene_builds():
+    scene = blob_box("lumo_tpu_torch", 1).build(accel="kdtree", device="cpu")
+    assert scene.kdtree is not None and scene.bvh is None
+    with pytest.raises(ValueError, match="unknown accel"):
+        blob_box("lumo_tpu_torch", 1).build(accel="octree", device="cpu")
+
+
+@pytest.mark.parametrize("what", ["sphere", "glass", "medium"])
 def test_unported_parts_raise(what):
     sb = blob_box("lumo_tpu_torch", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -88,7 +95,5 @@ def test_unported_parts_raise(what):
         elif what == "glass":
             sb.add_box(Material.glass())
             sb.build(device="cpu")
-        elif what == "kdtree":
-            sb.build(accel="kdtree", device="cpu")
         else:
             sb.set_medium((0.1, 0.1, 0.1), (0.1, 0.1, 0.1), 0.0)
