@@ -14,7 +14,10 @@ samples per pixel (one wavefront of 262,144 lanes): the BVH scene through
 ``accel="kdtree"`` through ``Renderer(scene, camera).samples(4).render()``.
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
-numbers are printed as one JSON line.  Any failure raises and exits
+numbers are printed as one JSON line; beside each traversal query's ms per
+call stand its resident blocks per SM and the grid it launches, the SIMT
+efficiency of its two phases (counting launch) and its device ms per
+frame (``case=per-frame``).  Any failure raises and exits
 non-zero; the last line is the result ``{"ok": true, "device": {...}}``,
 printed only when every phase passed.  It needs one card and exits
 non-zero without one, or outside a checkout.
@@ -43,19 +46,20 @@ FRAMES = 5           # timed frames of the render
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # operations per node visit (6 sub, 6 mul, 6 min/max of the slab pairs,
-# 4 reduce min/max, 2 inflate mul, 3 compares) and per triangle test
-# (9 sub, 9 shear mul/add pairs = 18, 6 mul + 3 sub edges, 2 add det,
-# 3 mul + 2 add t_scaled, 6 sign min/max, 4 range mul/cmp, 1 div, 24 for
-# the error bound)
-OPS_PER_NODE = 27
+# 4 reduce min/max, 2 inflate mul, 3 compares; a child-pair record is two
+# such tests) and per triangle test (9 sub, 9 shear mul/add pairs = 18,
+# 6 mul + 3 sub edges, 2 add det, 3 mul + 2 add t_scaled, 6 sign min/max,
+# 4 range mul/cmp, 1 div, 24 for the error bound)
+OPS_PER_NODE = 2 * 27
 OPS_PER_TRI = 78
 # a kd node visit: 1 sub and 1 mul for the plane distance, 6 compares
 OPS_PER_KD_NODE = 8
-# bytes a walk must read per distinct node and triangle: a BVH node is two
-# float4, a BVH triangle three vertices; a kd node two words, a kd leaf
-# reference three vertices and the prim id
-BVH_BYTES = (32, 36)
-KD_BYTES = (8, 40)
+# bytes a walk must read per distinct record, reference or triangle it
+# touches: a BVH child-pair record is two boxes and two links (56 B of its
+# 64), a BVH triangle three vertices (36 B); a kd node two words (8 B), a
+# kd leaf reference one prim id (4 B), a kd triangle three vertices (36 B)
+BVH_BYTES = (56, 36)
+KD_BYTES = (8, 4, 36)
 # exp_sync: float operations per element and trip of each variant (adds,
 # multiplies, compares, the vote or the two-level sum)
 SYNC_OPS = {"scalar": 0, "vec": 2, "reduce1": 4, "branch1": 4,
@@ -267,7 +271,7 @@ def phase_soup_kd(dev):
                 (out_k[1][:256] >= 0).sum()) == 0:
             raise AssertionError("kd soup: dead lanes hit, or no in-plane "
                                  "ray did")
-        log("soup-kd", tris=T, rays=N, refs=kd["tris"].shape[0],
+        log("soup-kd", tris=T, rays=N, refs=kd["refs"].shape[0],
             nodes=kd["nodes"].shape[0], depth=kd["depth"], hits=hits,
             occluded=occ, in_plane_hits=int((out_k[1][:256] >= 0).sum()),
             vs_plain_walk="prims exact, t bit-equal",
@@ -297,33 +301,38 @@ def capture_bounce_queries(scene, state, n_bounces):
     return calls
 
 
-def bound(kind, M, o, t_max, counts, seen, node_tri_bytes=BVH_BYTES,
+def bound(kind, sizes, o, t_max, counts, seen, seg_bytes=BVH_BYTES,
           ops_per_node=OPS_PER_NODE, extra_out_bytes=0):
     """The least time the card could take for one call on these rays: the
     larger of the bytes the call must move at the HBM rate and its float
     operations at the f32 peak.  Bytes: o, d and t_max of each live ray
-    (t_max > 0; a dead lane reads only its t_max), each distinct node and
-    triangle (or kd leaf reference) the call read, ``seen[:M]`` and
-    ``seen[M:]``, at ``node_tri_bytes`` each, and the outputs (closest: t
+    (t_max > 0; a dead lane reads only its t_max), each distinct record,
+    reference or triangle the call read (the segments of ``seen``, of
+    ``sizes`` marks, at ``seg_bytes`` each), and the outputs (closest: t
     f32 and a 32-bit prim per ray; any: one byte per ray; plus
     ``extra_out_bytes`` for the call).  Operations: the call's node visits
-    and triangle tests."""
+    and triangle tests.  Also the SIMT efficiency of the kernel's two
+    phases from the counting launch: lane steps over 32 lanes times warp
+    trips."""
     N = o.shape[0]
-    nodes, tris = (int(x) for x in counts.cpu())
-    seen_nodes, seen_tris = int(seen[:M].sum()), int(seen[M:].sum())
+    nodes, tris, w_inner, w_leaf = (int(x) for x in counts.cpu())
+    distinct, start = [], 0
+    for n in sizes:
+        distinct.append(int(seen[start:start + n].sum()))
+        start += n
     live = int((t_max > 0).sum())
-    nb, tb = node_tri_bytes
     out_bytes = N * (4 + 4 if kind == "closest" else 1) + extra_out_bytes
-    needed = live * 24 + N * 4 + seen_nodes * nb + seen_tris * tb + out_bytes
+    needed = (live * 24 + N * 4 + out_bytes
+              + sum(k * b for k, b in zip(distinct, seg_bytes)))
     t_bytes = needed / HBM_BYTES_PER_S * 1e3
     t_ops = (nodes * ops_per_node + tris * OPS_PER_TRI) / F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_needed": needed, "node_visits": nodes, "tri_tests": tris,
-            "distinct_nodes": seen_nodes, "distinct_tris": seen_tris,
+            "distinct": json.dumps(distinct).replace(" ", ""),
             "live_rays": live,
-            "fetched_bytes_ms": (nodes * nb + tris * tb) / HBM_BYTES_PER_S
-            * 1e3}
+            "simt_inner": nodes / max(1, 32 * w_inner),
+            "simt_leaf": tris / max(1, 32 * w_leaf)}
 
 
 def query_args(scene, o, d, t_max):
@@ -343,7 +352,7 @@ def kernel_numbers(scene, kind, o, d, t_max, reps=20):
     mod, args = query_args(scene, o, d, t_max)
     acc, extra = args[0], {}
     if scene.kdtree is not None:
-        extra = {"node_tri_bytes": KD_BYTES, "ops_per_node": OPS_PER_KD_NODE}
+        extra = {"seg_bytes": KD_BYTES, "ops_per_node": OPS_PER_KD_NODE}
     fn = mod.closest_hit if kind == "closest" else mod.any_hit
     plain = mod.closest_hit_plain if kind == "closest" else mod.any_hit_plain
     for _ in range(3):
@@ -357,13 +366,15 @@ def kernel_numbers(scene, kind, o, d, t_max, reps=20):
     else:
         occ, err = compare_any(out_k, out_p[0])
         check = {"occluded": occ}
-    M, T = acc["nodes"].shape[0], acc["tris"].shape[0]
-    counts = torch.zeros(2, dtype=torch.int64, device=o.device)
-    seen = torch.zeros(M + T, dtype=torch.uint8, device=o.device)
+    sizes = mod._marks(acc)
+    counts = torch.zeros(4, dtype=torch.int64, device=o.device)
+    seen = torch.zeros(sum(sizes), dtype=torch.uint8, device=o.device)
     fn(*args, counts=counts, seen=seen)
+    per_sm, grid = mod.grid(kind, o.shape[0])
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "rays": o.shape[0], **check,
-            **bound(kind, M, o, t_max, counts, seen, **extra)}
+            "rays": o.shape[0], **check, "blocks_per_sm": per_sm,
+            "grid": grid, **bound(kind, sizes, o, t_max, counts, seen,
+                                  **extra)}
 
 
 def phase_scene_kernels(scene, camera, dev):
@@ -490,7 +501,7 @@ def phase_profile(phase, frame, span, kernel_tag):
     on_card = [e for e in events if card(e) and e.name != span]
     if not window or not on_card:
         log(phase, device_events=len(on_card), device_time="not measured")
-        return
+        return {}
     w0, w1 = window[0].start, window[0].end
     spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
                    for e in on_card)
@@ -501,12 +512,24 @@ def phase_profile(phase, frame, span, kernel_tag):
             busy, end = busy + b - a, b
     us = lambda tag: sum(e.time_range.elapsed_us() for e in on_card
                          if tag in e.name)
+    per_frame = {"closest": us(f"{kernel_tag}<false") / 1e3,
+                 "any": us(f"{kernel_tag}<true") / 1e3}
     log(phase, wall_ms=wall * 1e3, window_ms=(w1 - w0) / 1e3,
         device_events=len(on_card), device_busy_ms=busy / 1e3,
         idle_share=1.0 - busy / (w1 - w0),
-        closest_ms_total=us(f"{kernel_tag}<false") / 1e3,
-        any_ms_total=us(f"{kernel_tag}<true") / 1e3,
+        closest_ms_total=per_frame["closest"], any_ms_total=per_frame["any"],
         kernel_launches=sum(f"{kernel_tag}<" in e.name for e in on_card))
+    return per_frame
+
+
+def log_per_frame(accel, nums, per_frame, launches):
+    """Each query's ms per call at 262,144 rays beside its device ms per
+    frame from the profiled frame."""
+    for k in ("closest", "any"):
+        log("kernels", case="per-frame", query=f"{accel}_{k}",
+            ms_per_call=nums[k]["ms"],
+            device_ms_per_frame=per_frame.get(k, "not measured"),
+            launches_per_frame=launches[k])
 
 
 def phase_parity(scene, dev, rtol=1e-5, atol=1e-7):
@@ -653,16 +676,16 @@ def _stats_on(scene, rays_from, rays, dev):
     t_s, p_s, stats = bvh_kernel.closest_hit_stats(*args)
     launches = bvh_kernel.LAUNCHES["stats"]
     t_c, p_c = bvh_kernel.closest_hit(*args)
-    M, T = scene.bvh["nodes"].shape[0], scene.bvh["tris"].shape[0]
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    seen = torch.zeros(M + T, dtype=torch.uint8, device=dev)
+    sizes = bvh_kernel._marks(scene.bvh)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    seen = torch.zeros(sum(sizes), dtype=torch.uint8, device=dev)
     bvh_kernel.closest_hit(*args, counts=counts, seen=seen)
     torch.cuda.synchronize()
     if not (torch.equal(t_s.view(torch.int32), t_c.view(torch.int32))
             and torch.equal(p_s, p_c)):
         raise AssertionError("stats: t or prim differ from closest_hit")
     total = stats[:, 0].sum(0, dtype=torch.int64).tolist()
-    if [total[0] + total[1], total[2]] != counts.tolist():
+    if [total[0], total[2]] != counts[:2].tolist():
         raise AssertionError(f"stats: counters {total} do not sum to the "
                              f"counting launch's {counts.tolist()}")
     t_p, p_p, stats_p = out_p[0]
@@ -675,16 +698,19 @@ def _stats_on(scene, rays_from, rays, dev):
     peak = stats[:, 1].double().clamp(min=1.0)
     busy = stats[:, 1].sum(1) > 0       # warps with at least one live lane
     simt = (stats[:, 0].double() / (32.0 * peak))[busy].mean(0).tolist()
-    # the stats output: 6 int32 per warp
-    b = bound("closest", M, o, t_max, counts, seen,
+    # the stats output: 6 int32 per group of 32 rays
+    b = bound("closest", sizes, o, t_max, counts, seen,
               extra_out_bytes=stats.numel() * 4)
+    per_sm, grid = bvh_kernel.grid("stats", o.shape[0])
     log("stats", rays_from=rays_from, rays=o.shape[0], warps=stats.shape[0],
         interior_visits=total[0], leaf_visits=total[1], tri_tests=total[2],
         simt_efficiency_interior=simt[0], simt_efficiency_leaf=simt[1],
-        simt_efficiency_tests=simt[2], vs_closest_hit="t, prim equal",
+        simt_efficiency_tests=simt[2],
+        persistent_simt_inner=b["simt_inner"],
+        persistent_simt_leaf=b["simt_leaf"], vs_closest_hit="t, prim equal",
         vs_plain_walk="t, prim, counters equal", ms=ms, plain_ms=plain_ms,
         max_abs_err=err, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-        launches=launches)
+        blocks_per_sm=per_sm, grid=grid, launches=launches)
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "launches": launches, **b}
 
@@ -753,8 +779,10 @@ def main():
         nodes=scene.bvh["nodes"].shape[0])
     nums, queries = phase_scene_kernels(scene, camera, dev)
     launches = phase_render(scene, camera, dev)
-    phase_profile("profile", lambda: render(scene, camera, RES, SPP, dev)[2],
-                  "integrate", "traverse")
+    per_frame = phase_profile(
+        "profile", lambda: render(scene, camera, RES, SPP, dev)[2],
+        "integrate", "traverse")
+    log_per_frame("bvh", nums, per_frame, launches)
     phase_parity(scene, dev)
     stats = phase_stats(scene, queries, dev)
 
@@ -765,12 +793,14 @@ def main():
     log("render-kd", scene_build_s=round(time.perf_counter() - t0, 3),
         tris=scene_kd.n_tris, kd_depth=scene_kd.kdtree["depth"],
         nodes=scene_kd.kdtree["nodes"].shape[0],
-        refs=scene_kd.kdtree["tris"].shape[0])
+        refs=scene_kd.kdtree["refs"].shape[0])
     nums_kd, queries_kd = phase_scene_kernels(scene_kd, camera, dev)
     phase_cross_check(scene_kd, scene, queries_kd)
     launches_kd = phase_render_kd(scene_kd, camera)
-    phase_profile("profile-kd", lambda: kd_frame(scene_kd, camera, SPP)[2],
-                  "render", "kd_traverse")
+    per_frame_kd = phase_profile(
+        "profile-kd", lambda: kd_frame(scene_kd, camera, SPP)[2], "render",
+        "kd_traverse")
+    log_per_frame("kd", nums_kd, per_frame_kd, launches_kd)
     phase_parity_kd(scene_kd, dev)
     sync = phase_sync(dev)
 

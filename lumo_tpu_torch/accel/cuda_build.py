@@ -95,27 +95,38 @@ def stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def count_ptrs(n_nodes: int, counts, seen):
-    """The (counts, seen nodes, seen triangles) pointers of a counting
-    launch, None where unused: ``seen`` holds ``n_nodes`` node marks and
-    then the triangle marks."""
+def count_ptrs(sizes, counts, seen):
+    """The pointers of a counting launch: ``counts`` and one per segment
+    of ``seen`` (``sizes`` marks each), None where unused."""
     if counts is None:
-        return None, None, None
+        return (None,) * (1 + len(sizes))
     if seen is None:
-        return ptr(counts), None, None
-    return ptr(counts), ptr(seen[:n_nodes]), ptr(seen[n_nodes:])
+        return (ptr(counts),) + (None,) * len(sizes)
+    out, start = [ptr(counts)], 0
+    for n in sizes:
+        out.append(ptr(seen[start:start + n]))
+        start += n
+    return tuple(out)
 
 
-def check_counts(counts, seen, dev, n_marks: int) -> None:
-    """Raise unless ``counts`` is a (2,) int64 and ``seen`` a contiguous
-    (n_marks,) uint8 tensor on ``dev`` (each may be None; ``seen`` only
+def check_counts(counts, seen, dev, sizes) -> None:
+    """Raise unless ``counts`` is a (4,) int64 and ``seen`` a contiguous
+    (sum(sizes),) uint8 tensor on ``dev`` (each may be None; ``seen`` only
     with ``counts``)."""
     if counts is not None:
-        check_tensor("counts", counts, dev, torch.int64, shape=(2,))
+        check_tensor("counts", counts, dev, torch.int64, shape=(4,))
     if seen is not None:
         if counts is None:
             raise ValueError("seen is filled only together with counts")
-        check_tensor("seen", seen, dev, torch.uint8, shape=(n_marks,))
+        check_tensor("seen", seen, dev, torch.uint8, shape=(sum(sizes),))
+
+
+def grid(lib: Library, fn: str, mode: int, n: int):
+    """(resident blocks per SM, blocks of a launch over ``n`` rays) that a
+    traversal library's ``fn`` reports for the kernel of ``mode``."""
+    out = (ctypes.c_int * 2)()
+    raise_on(getattr(lib.load(), fn)(mode, n, out), fn)
+    return out[0], out[1]
 
 
 def raise_on(rc: int, what: str) -> None:

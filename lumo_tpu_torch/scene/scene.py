@@ -64,7 +64,7 @@ class SceneData:
     prim_light: torch.Tensor   # (P,) light index per prim, -1 if none
     materials: dict            # name -> (M, ...) tensor
     bvh: Optional[dict]        # "nodes", "tris" (kernel layout), "depth"
-    kdtree: Optional[dict]     # "nodes", "tris", "root" (kernel layout), "depth"
+    kdtree: Optional[dict]     # "nodes", "refs", "tris", "root" (kernel layout), "depth"
     bounds: torch.Tensor       # (2, 3)
     n_tris: int
     n_bvh_tris: int            # [0, n_bvh_tris) are under the BVH
@@ -383,6 +383,7 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
             k, *(np.asarray(fields[f"tri_{v}"], np.float32) for v in "abc"))
         kd_dev = {
             "nodes": torch.as_tensor(packed["nodes"], device=device),
+            "refs": torch.as_tensor(packed["refs"], device=device),
             "tris": tens(packed["tris"]), "root": tens(packed["root"]),
             "depth": int(kd["depth"]) if "depth" in kd else
             kd_kernel.kd_depth(k["axis"], k["right"])}

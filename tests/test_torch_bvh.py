@@ -104,24 +104,61 @@ def _depth(bvh):
     return _bvh_depth(bvh.node_right, bvh.node_count)
 
 
+def _unpack_records(records, lo_root, hi_root):
+    """The kernel's child-pair records -> the builder's binary DFS tables
+    (``lo``, ``hi``, ``right``, ``first``, ``count``; inner nodes with
+    first = count = 0, leaves with right = 0), walking record 0 down."""
+    links = records[:, :2, 3].view(np.int32)
+    out = {k: [] for k in ("lo", "hi", "right", "first", "count")}
+
+    def emit(link, lo, hi):
+        me = len(out["lo"])
+        out["lo"].append(lo)
+        out["hi"].append(hi)
+        leaf = link >= bvh_kernel.LEAF_LINK
+        code = int(link) - bvh_kernel.LEAF_LINK if leaf else 0
+        out["first"].append(code >> 3)
+        out["count"].append(code & 7)
+        out["right"].append(0)
+        if not leaf:
+            rec = records[link]
+            emit(links[link, 0], rec[0, :3], rec[1, :3])
+            out["right"][me] = len(out["lo"])
+            emit(links[link, 1], rec[2, :3], rec[3, :3])
+
+    emit(0, lo_root, hi_root)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def test_pack_nodes_roundtrip():
     a, b, c = _soup(700, seed=1)
     bvh = tbuild.build(*tbuild.triangle_bounds(a, b, c))
     packed = bvh_kernel.pack_nodes(_tables(bvh))
-    w0 = packed[:, 0, 3].view(np.uint32).astype(np.int64)
-    w1 = packed[:, 1, 3].view(np.uint32).astype(np.int64)
     inner = bvh.node_count == 0
-    np.testing.assert_array_equal((w0 >> 2)[inner], bvh.node_right[inner])
-    np.testing.assert_array_equal((w0 & 3)[inner], bvh.node_axis[inner])
-    np.testing.assert_array_equal(w1 & 7, bvh.node_count)
-    np.testing.assert_array_equal((w1 >> 3)[~inner], bvh.node_first[~inner])
-    np.testing.assert_array_equal(packed[:, 0, :3], bvh.node_lo)
-    np.testing.assert_array_equal(packed[:, 1, :3], bvh.node_hi)
-    with pytest.raises(ValueError):
+    assert packed.dtype == np.float32
+    assert packed.shape == (int(inner.sum()), 4, 4)
+    assert not packed[:, 2:, 3].any()
+    back = _unpack_records(packed, bvh.node_lo[0], bvh.node_hi[0])
+    for k in ("lo", "hi", "right", "first", "count"):
+        want = getattr(bvh, f"node_{k}")
+        if k in ("right", "first"):
+            want = np.where(inner if k == "first" else ~inner, 0, want)
+        np.testing.assert_array_equal(back[k], want, err_msg=k)
+    # a tree that is one leaf: one record, the second child an empty leaf
+    one = bvh_kernel.pack_nodes({"lo": [[0, 0, 0]], "hi": [[1, 1, 1]],
+                                 "right": [0], "first": [0], "count": [3],
+                                 "axis": [0]})
+    assert one.shape == (1, 4, 4)
+    assert one[0, :2, 3].view(np.int32).tolist() == [
+        bvh_kernel.LEAF_LINK + 3, bvh_kernel.LEAF_LINK]
+    assert not np.isnan(packed).any()
+    for key, index, value in (("count", -1, 8), ("axis", 0, 3),
+                              ("right", 0, 1)):
         bad = _tables(bvh)
-        bad["count"] = bad["count"].copy()
-        bad["count"][-1] = 8
-        bvh_kernel.pack_nodes(bad)
+        bad[key] = bad[key].copy()
+        bad[key][index] = value
+        with pytest.raises(ValueError):
+            bvh_kernel.pack_nodes(bad)
 
 
 @pytest.mark.parametrize("T", [500, 3000])
@@ -155,6 +192,10 @@ def test_queries_match_pallas_and_traverse(T):
     ties += _compare_closest(t_tr, p_tr, t_got, p_got, dead, ulps=4)
     assert ties <= 2
     assert (p_got >= 0).sum() >= 20
+
+    # the walk over the child-pair records gives the dense answer
+    t_st, p_st, _ = bvh_kernel.closest_hit_stats_plain(port, tri, ot, dt, tt)
+    assert _compare_closest(t_de, p_de, t_st.numpy(), p_st.numpy(), dead) == 0
 
     occ_pl = np.asarray(pallas_bvh.any_hit(blk, oj, dj, t_max=tj,
                                            interpret=True, sub=1))
@@ -236,3 +277,56 @@ def test_stats_walk_matches_dense_and_counts(T):
     with pytest.raises(ValueError, match="depth"):
         bvh_kernel.closest_hit_stats(dict(port, depth=bvh_kernel.STACK + 1),
                                      tri, ot, dt, tt)
+
+
+def test_stats_walk_counts_a_hand_counted_tree():
+    """Three unit triangles at z = 0, 2 and 4, facing +z, in a tree of a
+    root, an inner node and three one-triangle leaves (leaf A, z = 0; leaf
+    B, z = 2; leaf C, z = 4; the inner node holds A and B).  Counted by
+    hand over the child-pair records (record 0: the inner node and C;
+    record 1: A and B), per ray (inner records fetched, leaves entered,
+    triangles tested):
+
+    - ray 0, from z = -1 along +z: record 0 hits both children, the inner
+      node (entry 1) before C (entry 5, stacked); record 1 hits A (entry
+      1) and B (entry 3, stacked); A is tested (t = 1); B pops with entry
+      3 >= 1 and C with 5 >= 1: both skipped.  (2, 1, 1), t = 1, prim 0;
+    - ray 1, from z = 5 along -z: C (entry 1) before the inner node
+      (entry 3); C tested (t = 1); the inner node pops with 3 >= 1,
+      skipped.  (1, 1, 1), t = 1, prim 2;
+    - ray 2, from z = 3 along -z: the inner node only (C lies behind);
+      B (entry 1) before A (entry 3); B tested (t = 1), A skipped.
+      (2, 1, 1), t = 1, prim 1;
+    - ray 3, beside the triangles, misses every box: (1, 0, 0);
+    - ray 4, dead (t_max 0): (0, 0, 0).
+    """
+    z = np.array([0.0, 2.0, 4.0], np.float32)
+    a = np.stack([np.zeros(3), np.zeros(3), z], 1).astype(np.float32)
+    b = np.stack([np.ones(3), np.zeros(3), z], 1).astype(np.float32)
+    c = np.stack([np.zeros(3), np.ones(3), z], 1).astype(np.float32)
+    lo = np.minimum(np.minimum(a, b), c)
+    hi = np.maximum(np.maximum(a, b), c)
+    # DFS: 0 root, 1 inner (A, B), 2 leaf A, 3 leaf B, 4 leaf C
+    tabs = {"lo": np.stack([lo.min(0), lo[:2].min(0), lo[0], lo[1], lo[2]]),
+            "hi": np.stack([hi.max(0), hi[:2].max(0), hi[0], hi[1], hi[2]]),
+            "right": np.array([4, 3, 0, 0, 0]),
+            "first": np.array([0, 0, 0, 1, 2]),
+            "count": np.array([0, 0, 1, 1, 1]),
+            "axis": np.array([2, 2, 0, 0, 0])}
+    port = _port_bvh(tabs, a, b, c, depth=3)
+    o = torch.tensor([[0.25, 0.25, -1.0], [0.25, 0.25, 5.0],
+                      [0.25, 0.25, 3.0], [3.0, 3.0, -1.0],
+                      [0.25, 0.25, -1.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 0.0, -1.0],
+                      [0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
+    t_max = torch.tensor([np.inf, np.inf, np.inf, np.inf, 0.0])
+    tri = tuple(torch.as_tensor(x) for x in (a, b, c))
+    t_s, p_s, stats = bvh_kernel.closest_hit_stats(port, tri, o, d, t_max)
+    assert p_s.tolist() == [0, 2, 1, -1, -1]
+    assert t_s.tolist() == [1.0, 1.0, 1.0, np.inf, np.inf]
+    per_ray = [(2, 1, 1), (1, 1, 1), (2, 1, 1), (1, 0, 0), (0, 0, 0)]
+    assert stats.shape == (1, 2, 3)
+    assert stats[0, 0].tolist() == [sum(r[k] for r in per_ray)
+                                    for k in range(3)]
+    assert stats[0, 1].tolist() == [max(r[k] for r in per_ray)
+                                    for k in range(3)]

@@ -45,6 +45,17 @@ def _port_bvh(a, b, c, card):
     return port, tuple(torch.as_tensor(x, device=card) for x in (ap, bp, cp))
 
 
+def _port_kd(a, b, c, card):
+    kd = tkd.build(*tbuild.triangle_bounds(a, b, c))
+    tabs = {"split": kd.split, "axis": kd.axis, "right": kd.right,
+            "first": kd.first, "count": kd.count, "prims": kd.prims,
+            "lo": kd.root_lo, "hi": kd.root_hi}
+    port = {k: torch.as_tensor(v, device=card)
+            for k, v in kd_kernel.pack_kd(tabs, a, b, c).items()}
+    port["depth"] = kd.max_depth
+    return port
+
+
 def test_kernel_matches_plain(card):
     """Prims exact and t bit-equal on a random soup with dead and seeded
     lanes; one launch counted per call."""
@@ -66,12 +77,14 @@ def test_kernel_matches_plain(card):
     # the counting launch: same answer, and the distinct nodes and
     # triangles it marks number no more than its visits and tests
     M, T = port["nodes"].shape[0], port["tris"].shape[0]
-    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    counts = torch.zeros(4, dtype=torch.int64, device=card)
     seen = torch.zeros(M + T, dtype=torch.uint8, device=card)
     t_c, p_c = bvh_kernel.closest_hit(port, tri, o, d, t_max, counts=counts,
                                       seen=seen)
     assert torch.equal(p_c, p_k) and torch.equal(t_c, t_k)
-    n_nodes, n_tris = counts.tolist()
+    n_nodes, n_tris, w_inner, w_leaf = counts.tolist()
+    # SIMT efficiency of each phase lies in (0, 1]
+    assert 0 < n_nodes <= 32 * w_inner and 0 < n_tris <= 32 * w_leaf
     assert 0 < int(seen[:M].sum()) <= min(M, n_nodes)
     assert 0 < int(seen[M:].sum()) <= min(T, n_tris)
     assert int(seen[0]) == 1 and int(seen.max()) == 1
@@ -123,10 +136,10 @@ def test_stats_kernel_matches_plain_walk(card):
     assert s_k.shape == (257, 2, 3) and s_k.dtype == torch.int32
     assert torch.equal(p_k, p_p) and torch.equal(s_k, s_p)
     assert torch.equal(t_k, t_c) and torch.equal(p_k, p_c)
-    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    counts = torch.zeros(4, dtype=torch.int64, device=card)
     bvh_kernel.closest_hit(port, tri, o, d, t_max, counts=counts)
     total = s_k[:, 0].sum(0).tolist()
-    assert [total[0] + total[1], total[2]] == counts.tolist()
+    assert [total[0], total[2]] == counts[:2].tolist()
 
 
 def test_kd_kernel_matches_plain_walk(card):
@@ -135,12 +148,7 @@ def test_kd_kernel_matches_plain_walk(card):
     test; dead lanes, finite t_max and rays lying in a split plane."""
     a, b, c = soup(3000, seed=11)
     kd = tkd.build(*tbuild.triangle_bounds(a, b, c))
-    tabs = {"split": kd.split, "axis": kd.axis, "right": kd.right,
-            "first": kd.first, "count": kd.count, "prims": kd.prims,
-            "lo": kd.root_lo, "hi": kd.root_hi}
-    port = {k: torch.as_tensor(v, device=card)
-            for k, v in kd_kernel.pack_kd(tabs, a, b, c).items()}
-    port["depth"] = kd.max_depth
+    port = _port_kd(a, b, c, card)
     o, d, t_max = soup_rays(32768, seed=12)
     inner = np.nonzero(kd.axis != 3)[0][:64]
     for i, node in enumerate(inner):            # rays in split planes
@@ -165,15 +173,17 @@ def test_kd_kernel_matches_plain_walk(card):
     assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, p_k >= 0)
     assert torch.equal(t_k.view(torch.int32), t_d.view(torch.int32))
     assert int((p_k != p_d).sum()) <= 8         # ties of equal t only
-    M, R = port["nodes"].shape[0], port["tris"].shape[0]
-    counts = torch.zeros(2, dtype=torch.int64, device=card)
-    seen = torch.zeros(M + R, dtype=torch.uint8, device=card)
+    M, R, T = (port[k].shape[0] for k in ("nodes", "refs", "tris"))
+    counts = torch.zeros(4, dtype=torch.int64, device=card)
+    seen = torch.zeros(M + R + T, dtype=torch.uint8, device=card)
     t_c, p_c = kd_kernel.closest_hit(port, o, d, t_max, counts=counts,
                                      seen=seen)
     assert torch.equal(p_c, p_k) and torch.equal(t_c, t_k)
-    n_nodes, n_tris = counts.tolist()
+    n_nodes, n_tris, w_inner, w_leaf = counts.tolist()
+    assert 0 < n_nodes <= 32 * w_inner and 0 < n_tris <= 32 * w_leaf
     assert 0 < int(seen[:M].sum()) <= min(M, n_nodes)
-    assert 0 < int(seen[M:].sum()) <= min(R, n_tris)
+    assert 0 < int(seen[M:M + R].sum()) <= min(R, n_tris)
+    assert 0 < int(seen[M + R:].sum()) <= min(T, int(seen[M:M + R].sum()))
     with pytest.raises(ValueError, match="depth"):
         kd_kernel.closest_hit(dict(port, depth=kd_kernel.STACK + 1), o, d,
                               t_max)
@@ -195,6 +205,80 @@ def test_kd_render_through_kernel_matches_plain(card):
         img_p = Renderer(scene, cam).samples(2).render(verbose=False)
     np.testing.assert_allclose(img_k, img_p, rtol=1e-5, atol=1e-6)
     assert float(img_k.mean()) > 0.01
+
+
+# the traversal kernels at the edges of their ray scheduling: no ray,
+# fewer rays than a warp, a ragged last warp, dead lanes (t_max 0, -1 and
+# NaN), and more rays than the card holds resident threads
+SIZES = {"no_rays": 0, "under_a_warp": 19, "ragged": 1013,
+         "dead_lanes": 4099, "beyond_the_grid": None}
+QUERIES = ("bvh_closest", "bvh_any", "bvh_stats", "kd_closest", "kd_any")
+
+
+@pytest.fixture(scope="module")
+def soup_ports():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    card = torch.device("cuda")
+    a, b, c = soup(3000, seed=31)
+    bvh, tri = _port_bvh(a, b, c, card)
+    return {"bvh": (bvh, tri), "kd": _port_kd(a, b, c, card)}
+
+
+def _query(name, ports, o, d, t_max, plain):
+    """One query of the named kernel (or of its plain version) -> a tuple
+    of outputs."""
+    mod = bvh_kernel if name.startswith("bvh") else kd_kernel
+    kind = name.split("_")[1]
+    fn = {"closest": "closest_hit", "any": "any_hit",
+          "stats": "closest_hit_stats"}[kind] + ("_plain" if plain else "")
+    args = ports["bvh"] if mod is bvh_kernel else (ports["kd"],)
+    out = getattr(mod, fn)(*args, o, d, t_max)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("query", QUERIES)
+def test_traversal_kernels_at_the_edges(soup_ports, query, size):
+    """Each kernel against its plain version at the edges of the ray
+    scheduling, launched twice in a row: the second launch (with a work
+    counter of its own, for the BVH kernel) gives the same answer."""
+    mod = bvh_kernel if query.startswith("bvh") else kd_kernel
+    kind = query.split("_")[1]
+    n = SIZES[size]
+    per_sm, _ = mod.grid(kind, 1)
+    resident = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    if n is None:
+        n = 2 * resident * 128 + 13
+    # the BVH kernel launches at most the resident grid, the kd kernel one
+    # thread per ray
+    blocks = -(-n // 128)
+    assert mod.grid(kind, n)[1] == (min(resident, blocks)
+                                    if mod is bvh_kernel else blocks)
+    o, d, t_max = soup_rays(n, seed=n + 5)
+    if size == "dead_lanes":
+        t_max[::3] = 0.0
+        t_max[1::7] = np.nan
+        t_max[2::11] = -1.0
+    card = torch.device("cuda")
+    o, d, t_max = (torch.as_tensor(x, device=card) for x in (o, d, t_max))
+    before = sum(mod.LAUNCHES.values())
+    first = _query(query, soup_ports, o, d, t_max, plain=False)
+    second = _query(query, soup_ports, o, d, t_max, plain=False)
+    assert sum(mod.LAUNCHES.values()) == before + 2
+    want = _query(query, soup_ports, o, d, t_max, plain=True)
+    torch.cuda.synchronize()
+    for got in (first, second):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w)
+    if n and kind != "stats":
+        dead = ~(t_max > 0)
+        assert not bool(first[-1][dead].any() if kind == "any"
+                        else (first[1][dead] >= 0).any())
 
 
 @pytest.mark.parametrize("variant", exp_sync.VARIANTS)

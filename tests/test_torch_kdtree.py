@@ -126,27 +126,36 @@ def test_native_builder_is_a_valid_kdtree():
     assert int((p_w >= 0).sum()) >= 20
 
 
+def _unpack_kd(packed):
+    """The kernel's layout -> the builder's flat tables (inner nodes with
+    first = count = 0, leaves with split = 0 and right = 0, as the
+    builders write them) and the vertices."""
+    nodes = packed["nodes"]
+    w1 = nodes[:, 1].view(np.uint32).astype(np.int64)
+    axis, arg = w1 & 3, w1 >> 2
+    leaf = axis == 3
+    tris, root = packed["tris"], packed["root"]
+    return {"split": np.where(leaf, 0.0, nodes[:, 0].view(np.float32))
+            .astype(np.float32),
+            "axis": axis, "right": np.where(leaf, 0, arg),
+            "first": np.where(leaf, nodes[:, 0], 0), "count": np.where(leaf, arg, 0),
+            "prims": packed["refs"], "lo": root[:3], "hi": root[3:],
+            "a": tris[:, 0, :3], "b": tris[:, 1, :3], "c": tris[:, 2, :3]}
+
+
 def test_pack_kd_roundtrip_and_limits():
     a, b, c = soup(300, seed=1)
     kd = tkd.build(*tbuild.triangle_bounds(a, b, c))
     tabs = _tables(kd)
     packed = kd_kernel.pack_kd(tabs, a, b, c)
-    nodes, tris, root = packed["nodes"], packed["tris"], packed["root"]
+    nodes, refs, tris = packed["nodes"], packed["refs"], packed["tris"]
     assert nodes.dtype == np.int32 and nodes.shape == (len(kd.axis), 2)
-    assert tris.dtype == np.float32 and tris.shape == (len(kd.prims), 3, 4)
-    w1 = nodes[:, 1].view(np.uint32).astype(np.int64)
-    leaf = kd.axis == 3
-    np.testing.assert_array_equal(w1 & 3, kd.axis)
-    np.testing.assert_array_equal((w1 >> 2)[~leaf], kd.right[~leaf])
-    np.testing.assert_array_equal((w1 >> 2)[leaf], kd.count[leaf])
-    np.testing.assert_array_equal(nodes[~leaf, 0].view(np.float32),
-                                  kd.split[~leaf])
-    np.testing.assert_array_equal(nodes[leaf, 0], kd.first[leaf])
-    np.testing.assert_array_equal(tris[:, 0, 3].view(np.int32), kd.prims)
-    for j, v in enumerate((a, b, c)):
-        np.testing.assert_array_equal(tris[:, j, :3], v[kd.prims])
-    np.testing.assert_array_equal(root, np.concatenate([kd.root_lo,
-                                                        kd.root_hi]))
+    assert refs.dtype == np.int32 and refs.shape == (len(kd.prims),)
+    assert tris.dtype == np.float32 and tris.shape == (300, 3, 4)
+    assert not tris[:, :, 3].any()
+    back = _unpack_kd(packed)
+    for k, v in {**tabs, "a": a, "b": b, "c": c}.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
 
     def broken(key, index, value):
         bad = dict(tabs)
@@ -154,6 +163,7 @@ def test_pack_kd_roundtrip_and_limits():
         bad[key][index] = value
         return bad
 
+    leaf = kd.axis == 3
     first_leaf = int(np.nonzero(leaf)[0][0])
     first_inner = int(np.nonzero(~leaf)[0][0])
     for bad in (broken("axis", 0, 4), broken("prims", 0, len(a)),
@@ -233,6 +243,40 @@ def test_walk_matches_dense_traverse_and_pallas(T):
                                               interpret=True, sub=1)))
     np.testing.assert_array_equal(
         occ_got, bvh_kernel.any_hit_plain(None, tri, ot, dt, tt).numpy())
+
+
+def test_walk_keeps_the_smaller_prim_on_ties():
+    """Every triangle twice (prims i and i + T): each hit is a tie of equal
+    t.  The walk over the index layout keeps the smaller prim, as the
+    dense test, the JAX walk and the Pallas kernel do; in-plane rays and
+    dead lanes included."""
+    T = 300
+    a, b, c = (np.concatenate([v, v]) for v in soup(T, seed=21))
+    lo = np.minimum(np.minimum(a, b), c)
+    hi = np.maximum(np.maximum(a, b), c)
+    kd = jkd.build(lo, hi)
+    port = _port_kd(kd, a, b, c)
+    rays = [np.concatenate(p) for p in zip(soup_rays(N_RAYS, seed=22),
+                                           _in_plane_rays(kd, 32, seed=23))]
+    ot, dt, tt = (torch.as_tensor(x) for x in rays)
+    oj, dj, tj = (jnp.asarray(x) for x in rays)
+    t_got, p_got = (x.numpy() for x in kd_kernel.closest_hit(port, ot, dt, tt))
+    hit = p_got >= 0
+    assert hit.sum() >= 20 and np.all(p_got[hit] < T)
+    assert not np.any(hit & (rays[2] <= 0.0))
+    tri = tuple(torch.as_tensor(x) for x in (a, b, c))
+    t_de, p_de = bvh_kernel.closest_hit_plain(None, tri, ot, dt, tt)
+    assert _compare_closest(t_de.numpy(), p_de.numpy(), t_got, p_got, 0) == 0
+    jkd_dev = {k: jnp.asarray(v) for k, v in _tables(kd).items()}
+    jtri = tuple(jnp.asarray(x) for x in (a, b, c))
+    t_tr, p_tr = traverse.kd_closest_hit(jkd_dev, jtri, oj, dj, t_max=tj)
+    assert _compare_closest(t_tr, p_tr, t_got, p_got, 1e-5) == 0
+    blk = pallas_kd.to_device(pallas_kd.pack_kd_blocks(kd, a, b, c))
+    t_pl, p_pl = pallas_kd.closest_hit(blk, oj, dj, t_max=tj, interpret=True,
+                                       sub=1)
+    assert _compare_closest(t_pl, p_pl, t_got, p_got, 1e-5) == 0
+    np.testing.assert_array_equal(
+        kd_kernel.any_hit(port, ot, dt, tt).numpy(), hit)
 
 
 # ---------------------------------------------------------------------------
