@@ -7,11 +7,23 @@ Run from the root of a checkout:
 It builds the port's CUDA kernels (BVH traversal with its stats variant,
 kd-tree traversal, the in-kernel loop microbenchmark) and both native
 tree builders from the sources in the checkout, holds every kernel
-against its plain PyTorch version on the card, and drives two paths over
-the 327,692-triangle scene of ``bench.py::bench_bvh_scene`` at 256x256, 4
-samples per pixel (one wavefront of 262,144 lanes): the BVH scene through
-``path_trace.integrate``, and the same scene built with
-``accel="kdtree"`` through ``Renderer(scene, camera).samples(4).render()``.
+against its plain PyTorch version on the card, and drives the port's
+paths over ``bench.py``'s scenes at 256x256:
+
+- forward: the 327,692-triangle scene of ``bench.py::bench_bvh_scene``
+  through ``path_trace.integrate`` (4 samples per pixel, one wavefront of
+  262,144 lanes), and the same scene built with ``accel="kdtree"``
+  through ``Renderer(scene, camera).samples(4).render()``;
+- gradients (fixed depth, checkpointed bounces): the Cornell box
+  (``[grad-cornell]``, the dense path) and the BVH scene
+  (``[grad-bvh]``), each material leaf and the camera origin, fwd+bwd and
+  forward-only rays/s, peak memory with the checkpoint on and off; the
+  gradients through K2 against the plain versions (``[grad-parity]``) and
+  through K3 against K2's (``[grad-kd]``);
+- the persistent wavefront: ``integrate_stream`` over 32 samples per
+  pixel against batch mode (``[stream]``), and ``Renderer.stream()`` on
+  the kd scene (``[render-kd-stream]``).
+
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
 numbers are printed as one JSON line; beside each traversal query's ms per
@@ -67,7 +79,13 @@ SYNC_OPS = {"scalar": 0, "vec": 2, "reduce1": 4, "branch1": 4,
 SYNC_TRIPS = 100000
 
 
+T_START = time.perf_counter()
+
+
 def log(phase, **kv):
+    """One ``[phase] k=v ...`` line, ending with the seconds since the
+    script started (``at_s``)."""
+    kv["at_s"] = round(time.perf_counter() - T_START, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -105,13 +123,13 @@ def bench_scene(dev, accel="bvh"):
     return sb.build(device=dev, accel=accel)
 
 
-def camera_wavefront(camera, res, spp, dev):
-    """Jittered camera rays keyed per (pixel, sample), as bench.py:234-245
-    generates them."""
+def sample_rays(camera, res, idx):
+    """Jittered camera rays of the sample ids ``idx`` (pixel ``idx % n``,
+    sample ``idx // n``), keyed per (pixel, sample), as bench.py:234-245
+    generates them: (o, d, lam, ray_key, pixel)."""
     from lumo_tpu_torch.color import wavelength
     from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
     n = res * res
-    idx = torch.arange(n * spp, dtype=torch.int64, device=dev)
     p, s = idx % n, idx // n
     gx, gy = (p % res).float(), (p // res).float()
     jx = _randfloat(p, s ^ 0x51633E2D)
@@ -120,7 +138,13 @@ def camera_wavefront(camera, res, spp, dev):
     o, d = camera.generate_ray(raster, torch.full_like(raster, 0.5))
     lam = wavelength.sample(_randfloat(p, s ^ 0x02E5BE93))
     rk = _hash_u32(p ^ _hash_u32(s ^ 0x9E3779B9))
-    return o, d, lam, rk
+    return o, d, lam, rk, p
+
+
+def camera_wavefront(camera, res, spp, dev):
+    """The first ``spp`` samples of every pixel (:func:`sample_rays`)."""
+    idx = torch.arange(res * res * spp, dtype=torch.int64, device=dev)
+    return sample_rays(camera, res, idx)[:4]
 
 
 def kernel_libraries():
@@ -751,6 +775,432 @@ def phase_sync(dev):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# ---------------------------------------------------------------------------
+# the differentiable path (fixed depth, checkpointed bounces) and the stream
+
+GRAD_CORNELL_SPP = 4   # bench.py:44's 64 spp, cut for the script's time
+GRAD_CORNELL_DEPTH = 6  # bench.py:46
+GRAD_SPP = 2           # bench.py:275-276
+GRAD_DEPTH = 4
+GRAD_RUNS = 3          # timed runs after a warm-up
+STREAM_SPP = 32        # bench.py:216-219: 32 spp through 262,144 lanes
+STREAM_LANES = 262144
+KD_STREAM_FRAMES = 3
+# gradient agreement of two routes on lanes whose prims agree: the card's
+# scatter-adds sum in any order
+GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
+
+
+def grad_rays(camera, res, sp, dev):
+    """bench.py:285-291's rays of sample ``sp`` at every pixel: jittered
+    raster, hero wavelengths, ray_key = hash(pixel ^ hash(sp))."""
+    from lumo_tpu_torch.color import wavelength
+    from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
+    pix = torch.arange(res * res, dtype=torch.int64, device=dev)
+    raster = torch.stack([(pix % res).float() + _randfloat(pix, sp ^ 0x51633E2D),
+                          (pix // res).float() + _randfloat(pix, sp ^ 0x68BC21EB)],
+                         -1)
+    o, d = camera.generate_ray(raster, torch.full_like(raster, 0.5))
+    lam = wavelength.sample(_randfloat(pix, sp ^ 0x02E5BE93))
+    return o, d, lam, _hash_u32(pix ^ _hash_u32(torch.full_like(pix, sp)))
+
+
+def loss_rgb(wbm):
+    """bench.py:85-87's loss: mean(rgb^2) through the film's colour
+    matrix."""
+    from lumo_tpu_torch import film
+    return lambda r, lam, w: (film.spectral_to_rgb(r, lam, wbm) ** 2).mean()
+
+
+def loss_r2(r, lam, w):
+    """bench.py:297's loss, mean(r^2), over the lanes of weight ``w``."""
+    return (r * r).mean() if w is None else (w[:, None] * r * r).mean()
+
+
+def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
+              checkpoint=False, weight=None, kernels=None):
+    """One fwd(+bwd) over the samples ``samples`` (each a whole image at
+    fixed depth), accumulating the gradients of every float material leaf
+    and of ``c2w_t`` over them.  Returns loss (summed), rays (2 x sum of
+    depths), the gradients (None when ``backward`` is False), the prims of
+    each sample, wall seconds (synchronised), and, for a kernel module
+    ``kernels``, its launches during the forwards and the backwards."""
+    import dataclasses
+    from lumo_tpu_torch.integrators import path_trace
+    dev = scene.device
+    mats = {k: v.detach().clone().requires_grad_(backward)
+            for k, v in scene.materials.items() if v.is_floating_point()}
+    c2w_t = camera.c2w_t.detach().clone().requires_grad_(backward)
+    sc = dataclasses.replace(scene, materials={**scene.materials, **mats})
+    cam = dataclasses.replace(camera, c2w_t=c2w_t)
+    launches = {"fwd": {"closest": 0, "any": 0}, "bwd": {"closest": 0, "any": 0}}
+    snap = lambda: dict(kernels.LAUNCHES) if kernels is not None else {}
+
+    def add(part, before):
+        for k in launches[part]:
+            launches[part][k] += snap().get(k, 0) - before.get(k, 0)
+
+    loss_sum = torch.zeros((), device=dev)
+    rays = torch.zeros((), device=dev)
+    prims = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(backward):
+        for sp in samples:
+            before = snap()
+            o, d, lam, rk = grad_rays(cam, res, sp, dev)
+            r, lam_out, dep, pr = path_trace.integrate(
+                sc, o, d, lam, ray_key=rk, fixed_depth=depth,
+                trace_prims=True, checkpoint=checkpoint)
+            loss = loss_fn(r, lam_out, weight)
+            add("fwd", before)
+            if backward:
+                before = snap()
+                loss.backward()
+                add("bwd", before)
+            loss_sum += loss.detach()
+            rays += 2.0 * dep.sum()
+            prims.append(pr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grads = None
+    if backward:
+        grads = {k: v.grad for k, v in mats.items()}
+        grads["c2w_t"] = c2w_t.grad
+    return {"loss": float(loss_sum), "rays": float(rays), "grads": grads,
+            "prims": prims, "wall": wall, "launches": launches}
+
+
+def grads_finite(grads):
+    return all(bool(torch.isfinite(g).all()) for g in grads.values()
+               if g is not None)
+
+
+def gnorm(grads, spp):
+    """bench.py's gradient norm: sum of |g| over the material leaves, per
+    sample."""
+    return sum(float(g.abs().sum()) for k, g in grads.items()
+               if g is not None and k != "c2w_t") / spp
+
+
+def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
+               kernel_tag="traverse"):
+    """A gradient cell: fwd+bwd rays/s with the checkpoint off (the
+    default) and on, and forward-only rays/s (median of GRAD_RUNS in turns
+    after a warm-up, with the fastest and slowest), loss, gnorm
+    and finiteness, peak device memory of one sample with the checkpoint on
+    and off, the idle share of one profiled sample's fwd+bwd, and the
+    kernel launches of one fwd+bwd (checkpoint on and off) beside those of
+    the forward alone: once per bounce each."""
+    samples = list(range(1, spp + 1))
+    for ckpt in (False, True):                                   # warm-up
+        grad_pass(scene, camera, res, samples[:1], depth, loss_fn,
+                  checkpoint=ckpt)
+    runs, runs_ckpt, fwd = [], [], []
+    for _ in range(GRAD_RUNS):                # the three modes in turns
+        runs.append(grad_pass(scene, camera, res, samples, depth, loss_fn,
+                              kernels=kernels))
+        runs_ckpt.append(grad_pass(scene, camera, res, samples, depth,
+                                   loss_fn, checkpoint=True, kernels=kernels))
+        fwd.append(grad_pass(scene, camera, res, samples, depth, loss_fn,
+                             backward=False, kernels=kernels))
+    for run in runs + runs_ckpt:
+        if not grads_finite(run["grads"]):
+            raise AssertionError(f"{phase}: non-finite gradients")
+    rate = sorted(r["rays"] / r["wall"] for r in runs)
+    rate_ckpt = sorted(r["rays"] / r["wall"] for r in runs_ckpt)
+    rate_f = sorted(r["rays"] / r["wall"] for r in fwd)
+    peak = {}
+    for ckpt in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grad_pass(scene, camera, res, samples[:1], depth, loss_fn,
+                  checkpoint=ckpt)
+        peak[ckpt] = (torch.cuda.max_memory_allocated(), base)
+    per = phase_profile(f"{phase}-profile", lambda: _profiled_sample(
+        scene, camera, res, depth, loss_fn), "grad_sample", kernel_tag)
+    run, off = runs_ckpt[0], runs[0]["launches"]
+    both = {k: run["launches"]["fwd"][k] + run["launches"]["bwd"][k]
+            for k in ("closest", "any")}
+    log(phase, res=f"{res}x{res}", spp=spp, depth=depth, lanes=res * res,
+        runs=GRAD_RUNS, fwd_bwd_rays_per_s_median=rate[GRAD_RUNS // 2],
+        fwd_bwd_rays_per_s_min=rate[0], fwd_bwd_rays_per_s_max=rate[-1],
+        checkpoint_fwd_bwd_rays_per_s_median=rate_ckpt[GRAD_RUNS // 2],
+        checkpoint_fwd_bwd_rays_per_s_min=rate_ckpt[0],
+        checkpoint_fwd_bwd_rays_per_s_max=rate_ckpt[-1],
+        fwd_rays_per_s_median=rate_f[GRAD_RUNS // 2],
+        fwd_rays_per_s_min=rate_f[0], fwd_rays_per_s_max=rate_f[-1],
+        wall_s=json.dumps([r["wall"] for r in runs]).replace(" ", ""),
+        checkpoint_wall_s=json.dumps(
+            [r["wall"] for r in runs_ckpt]).replace(" ", ""),
+        fwd_wall_s=json.dumps([r["wall"] for r in fwd]).replace(" ", ""),
+        rays=runs[0]["rays"], loss=runs[0]["loss"] / spp,
+        gnorm=gnorm(runs[0]["grads"], spp), grads_finite=True,
+        peak_bytes_checkpoint_on=peak[True][0],
+        peak_bytes_checkpoint_off=peak[False][0],
+        allocated_before_bytes=peak[True][1],
+        checkpoint_launches_fwd_bwd=json.dumps(both).replace(" ", ""),
+        checkpoint_launches_of_its_backward=json.dumps(
+            run["launches"]["bwd"]).replace(" ", ""),
+        launches_fwd_bwd=json.dumps(
+            {k: off["fwd"][k] + off["bwd"][k] for k in off["fwd"]}).replace(
+                " ", ""),
+        launches_forward_only=json.dumps(fwd[0]["launches"]["fwd"]).replace(" ", ""),
+        kernel_ms_per_profiled_sample=json.dumps(per).replace(" ", ""))
+    once = {"closest": spp * depth, "any": spp * depth}
+    if kernels is not None and not (
+            both == fwd[0]["launches"]["fwd"] == off["fwd"] == once
+            and sum(off["bwd"].values()) == 0):
+        raise AssertionError(f"{phase}: the backward launched kernels: "
+                             f"{both}, {off} against "
+                             f"{fwd[0]['launches']['fwd']}")
+
+
+def _profiled_sample(scene, camera, res, depth, loss_fn):
+    with torch.profiler.record_function("grad_sample"):
+        return grad_pass(scene, camera, res, [1], depth, loss_fn)["wall"]
+
+
+def _weighted_grads(scene, camera, weight, plain_mod=None):
+    """[grad-parity]'s fwd+bwd at PARITY_RES, 1 sample, depth GRAD_DEPTH,
+    loss mean(w r^2); routed to ``plain_mod``'s plain versions when
+    given."""
+    run = lambda: grad_pass(scene, camera, PARITY_RES, [1], GRAD_DEPTH,
+                            loss_r2, backward=weight is not None,
+                            weight=weight)
+    if plain_mod is None:
+        return run()
+    with mock.patch.object(plain_mod, "closest_hit",
+                           plain_mod.closest_hit_plain), \
+            mock.patch.object(plain_mod, "any_hit", plain_mod.any_hit_plain):
+        return run()
+
+
+def compare_grads(phase, got, want):
+    """Each gradient within (GRAD_RTOL, GRAD_ATOL_REL x its largest entry)
+    of ``want``; returns the largest error relative to that entry."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if w is None or g is None:
+            if (w is None) != (g is None):
+                raise AssertionError(f"{phase}: {k} has a gradient on one "
+                                     "route only")
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        if not torch.allclose(g, w, rtol=GRAD_RTOL,
+                              atol=GRAD_ATOL_REL * scale):
+            raise AssertionError(f"{phase}: {k} gradients disagree "
+                                 f"(max |diff| {float((g - w).abs().max())},"
+                                 f" scale {scale})")
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def phase_grad_parity(scene, dev):
+    """Gradients of every float material leaf and c2w_t through K2 against
+    the same routed to the plain versions, at PARITY_RES, 1 sample, depth
+    4; lanes whose prims differ are counted and weighted out.  Returns the
+    camera, the weight and K2's gradients for [grad-kd]."""
+    from lumo_tpu_torch.accel import bvh_kernel
+    from lumo_tpu_torch.camera import build_camera
+    cam = build_camera(resolution=(PARITY_RES, PARITY_RES), device=dev)
+    pr_k = _weighted_grads(scene, cam, None)["prims"][0]
+    t0 = time.perf_counter()
+    pr_p = _weighted_grads(scene, cam, None, bvh_kernel)["prims"][0]
+    same = (pr_k == pr_p).all(dim=0)
+    flips = int((~same).sum())
+    weight = same.float()
+    g_k = _weighted_grads(scene, cam, weight)
+    g_p = _weighted_grads(scene, cam, weight, bvh_kernel)
+    err = compare_grads("grad-parity", g_k["grads"], g_p["grads"])
+    log("grad-parity", res=f"{PARITY_RES}x{PARITY_RES}", spp=1,
+        depth=GRAD_DEPTH, lanes=same.numel(), topology_flips=flips,
+        leaves=len(g_k["grads"]), max_rel_err=err, rtol=GRAD_RTOL,
+        atol_rel=GRAD_ATOL_REL, loss_k2=g_k["loss"], loss_plain=g_p["loss"],
+        grads_finite=grads_finite(g_k["grads"]),
+        plain_s=round(time.perf_counter() - t0, 2))
+    if flips > same.numel() // 100 or not grads_finite(g_k["grads"]):
+        raise AssertionError("grad-parity: too many flips or non-finite")
+    return cam, weight, g_k
+
+
+def phase_grad_kd(scene_kd, scene_bvh, parity):
+    """The same rays and loss through K3 on the kd-built scene against
+    [grad-parity]'s K2 gradients.  K3 and K2 give bit-equal t on the same
+    rays, so only the walls' route differs (the kd tree against the dense
+    test); lanes whose per-bounce hit pattern differs are counted and
+    weighted out of both."""
+    cam, weight, _ = parity
+    from lumo_tpu_torch.accel import kd_kernel
+    f_kd = _weighted_grads(scene_kd, cam, None)
+    f_bvh = _weighted_grads(scene_bvh, cam, None)
+    agree = ((f_kd["prims"][0] >= 0) == (f_bvh["prims"][0] >= 0)).all(dim=0)
+    flips = int((~agree).sum())
+    w2 = weight * agree.float()
+    before = dict(kd_kernel.LAUNCHES)
+    g_kd = _weighted_grads(scene_kd, cam, w2)
+    launches = {k: kd_kernel.LAUNCHES[k] - before[k] for k in before}
+    g_bvh = _weighted_grads(scene_bvh, cam, w2)
+    err = compare_grads("grad-kd", g_kd["grads"], g_bvh["grads"])
+    log("grad-kd", res=f"{PARITY_RES}x{PARITY_RES}", spp=1, depth=GRAD_DEPTH,
+        lanes=agree.numel(), flips_vs_k2=flips, max_rel_err=err,
+        rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL, loss_k3=g_kd["loss"],
+        loss_k2=g_bvh["loss"], grads_finite=grads_finite(g_kd["grads"]),
+        launches=json.dumps(launches).replace(" ", ""))
+    if flips > agree.numel() // 100 or min(launches.values()) != GRAD_DEPTH:
+        raise AssertionError(f"grad-kd: {flips} flips, launches {launches}")
+
+
+def phase_stream(scene, camera, dev):
+    """bench.py:222-265's forward on the BVH scene: ``integrate_stream``
+    with 262,144 lanes over 32 spp of 256^2 against batch ``integrate`` over
+    the same samples (8 waves of 262,144), in turns.  Sum of depths equal,
+    per-pixel radiance sums within rtol 1e-4, atol 1e-5."""
+    from lumo_tpu_torch.accel import bvh_kernel
+    from lumo_tpu_torch.integrators import path_trace
+    n = RES * RES
+    n_samples = n * STREAM_SPP
+
+    def gen(idx):
+        o, d, lam, rk, p = sample_rays(camera, RES, idx)
+        return {"o": o, "d": d, "lam": lam, "rng": rk, "pix": p}
+
+    def fold(acc, term, st):
+        depth, rad, iters = acc
+        return (depth + torch.where(term, st["depth"], 0).sum(),
+                rad.index_add(0, st["pix"], torch.where(
+                    term[:, None], st["radiance"], 0.0)), iters + 1)
+
+    def stream():
+        acc0 = (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((n, 4), device=dev), 0)
+        with torch.profiler.record_function("stream"):
+            return path_trace.integrate_stream(scene, gen, fold, acc0,
+                                               STREAM_LANES, n_samples)
+
+    def batch():
+        depth = torch.zeros((), dtype=torch.int64, device=dev)
+        rad = torch.zeros((n, 4), device=dev)
+        bounces = 0
+        for w in range(n_samples // STREAM_LANES):
+            idx = torch.arange(STREAM_LANES, device=dev) + w * STREAM_LANES
+            o, d, lam, rk, p = sample_rays(camera, RES, idx)
+            r, _, dep, pr = path_trace.integrate(scene, o, d, lam,
+                                                 ray_key=rk, trace_prims=True)
+            depth, rad = depth + dep.sum(), rad.index_add(0, p, r)
+            bounces += pr.shape[0]
+        return depth, rad, bounces
+
+    def timed(fn):
+        for k in bvh_kernel.LAUNCHES:
+            bvh_kernel.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            k: bvh_kernel.LAUNCHES[k] for k in ("closest", "any")}
+
+    stream()                                        # warm-up
+    walls = {"batch": [], "stream": []}
+    for _ in range(GRAD_RUNS):
+        b, wall_b, launch_b = timed(batch)
+        s, wall_s, launch_s = timed(stream)
+        walls["batch"].append(wall_b)
+        walls["stream"].append(wall_s)
+    depth_b, rad_b, bounces_b = b
+    depth_s, rad_s, iters_s = s
+    close = torch.isclose(rad_s, rad_b, rtol=1e-4, atol=1e-5).all(dim=1)
+    rays = 2.0 * float(depth_s)
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    per = phase_profile("stream-profile", lambda: timed(stream)[1], "stream",
+                        "traverse")
+    log("stream", res=f"{RES}x{RES}", spp=STREAM_SPP, samples=n_samples,
+        lanes=STREAM_LANES, rays=rays,
+        stream_rays_per_s_median=rays / med(walls["stream"]),
+        stream_rays_per_s_min=rays / max(walls["stream"]),
+        stream_rays_per_s_max=rays / min(walls["stream"]),
+        batch_rays_per_s_median=rays / med(walls["batch"]),
+        batch_rays_per_s_min=rays / max(walls["batch"]),
+        batch_rays_per_s_max=rays / min(walls["batch"]),
+        stream_wall_s=json.dumps(walls["stream"]).replace(" ", ""),
+        batch_wall_s=json.dumps(walls["batch"]).replace(" ", ""),
+        stream_iterations=iters_s, batch_bounce_iterations=bounces_b,
+        depth_sum_stream=int(depth_s), depth_sum_batch=int(depth_b),
+        pixels_beyond_tolerance=int((~close).sum()),
+        launches_stream=json.dumps(launch_s).replace(" ", ""),
+        launches_batch=json.dumps(launch_b).replace(" ", ""),
+        kernel_ms_per_stream_frame=json.dumps(per).replace(" ", ""))
+    if int(depth_s) != int(depth_b) or not bool(close.all()):
+        raise AssertionError("stream and batch disagree")
+    return launch_s
+
+
+def kd_stream_frame(scene, camera, spp, delta=None):
+    """``Renderer(scene, camera).samples(spp).stream().render()``: (image,
+    2 x sum of path depths, wall seconds)."""
+    from lumo_tpu_torch import renderer
+    accs = []
+    real = renderer.path_trace.integrate_stream
+
+    def integrate_stream(*args, **kwargs):
+        accs.append(real(*args, **kwargs))
+        return accs[-1]
+
+    r = renderer.Renderer(scene, camera).samples(spp).stream()
+    if delta is not None:
+        r.fixed_rr_delta(delta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(renderer.path_trace, "integrate_stream",
+                           integrate_stream):
+        img = r.render(verbose=False)
+    wall = time.perf_counter() - t0
+    w, h = camera.resolution
+    # the renderer counts depth + 1 rays per sample
+    return img, 2.0 * (float(accs[0][2]) - w * h * spp), wall
+
+
+def phase_render_kd_stream(scene, camera):
+    """``Renderer(scene_kd, camera).samples(4).stream().render()`` beside
+    [render-kd]'s batch render: rays/s of the default (adaptive) render,
+    and the image of both modes at the fixed threshold 1, which trace the
+    same samples: pixels within rtol 1e-4, atol 1e-6 (sums in another
+    order), those beyond counted (at most 1%)."""
+    from lumo_tpu_torch.accel import kd_kernel
+    kd_stream_frame(scene, camera, SPP)               # warm-up
+    walls, rays, per_frame = [], [], []
+    for _ in range(KD_STREAM_FRAMES):
+        for k in kd_kernel.LAUNCHES:
+            kd_kernel.LAUNCHES[k] = 0
+        img, r, wall = kd_stream_frame(scene, camera, SPP)
+        per_frame.append(dict(kd_kernel.LAUNCHES))
+        if img.shape != (RES, RES, 3) or not np.isfinite(img).all():
+            raise AssertionError("kd stream: wrong shape or non-finite")
+        walls.append(wall)
+        rays.append(r)
+    rate = sorted(r / w for r, w in zip(rays, walls))
+    img_s, _, _ = kd_stream_frame(scene, camera, SPP, delta=1.0)
+    img_b, _, _ = kd_frame(scene, camera, SPP, delta=1.0)
+    close = np.isclose(img_s, img_b, rtol=1e-4, atol=1e-6).all(axis=-1)
+    flips = int((~close).sum())
+    log("render-kd-stream", entry="Renderer.samples(4).stream().render()",
+        res=f"{RES}x{RES}", spp=SPP, frames=KD_STREAM_FRAMES,
+        wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
+        rays_per_s_median=rate[len(rate) // 2], rays_per_s_min=rate[0],
+        rays_per_s_max=rate[-1],
+        launches=json.dumps(per_frame[0]).replace(" ", ""),
+        image_mean=float(img.mean()), fixed_delta_pixels=close.size,
+        fixed_delta_flips=flips,
+        fixed_delta_max_abs_err=float(np.abs(img_s - img_b)[close].max()),
+        rtol=1e-4, atol=1e-6)
+    if flips > close.size // 100 or min(per_frame[0].values()) <= 0:
+        raise AssertionError("kd stream and batch images disagree")
+    return per_frame[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -786,6 +1236,22 @@ def main():
     phase_parity(scene, dev)
     stats = phase_stats(scene, queries, dev)
 
+    # the differentiable path: the Cornell box (dense), then the BVH scene
+    from lumo_tpu_torch import film
+    from lumo_tpu_torch.accel import bvh_kernel
+    from lumo_tpu_torch.camera import cornell_camera
+    from lumo_tpu_torch.scene.cornell import cornell_box
+    cornell = cornell_box().build(device=dev)
+    phase_grad("grad-cornell", cornell,
+               cornell_camera(resolution=(RES, RES), device=dev), RES,
+               GRAD_CORNELL_SPP, GRAD_CORNELL_DEPTH,
+               loss_rgb(film.wb_matrix("DCI-P3", "CORNELL")))
+    del cornell
+    phase_grad("grad-bvh", scene, camera, RES, GRAD_SPP, GRAD_DEPTH, loss_r2,
+               kernels=bvh_kernel)
+    parity = phase_grad_parity(scene, dev)
+    phase_stream(scene, camera, dev)
+
     # the kd-tree path through the Renderer
     t0 = time.perf_counter()
     scene_kd = bench_scene(dev, accel="kdtree")
@@ -802,6 +1268,8 @@ def main():
         "kd_traverse")
     log_per_frame("kd", nums_kd, per_frame_kd, launches_kd)
     phase_parity_kd(scene_kd, dev)
+    phase_grad_kd(scene_kd, scene, parity)
+    phase_render_kd_stream(scene_kd, camera)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

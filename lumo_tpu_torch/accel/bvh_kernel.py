@@ -13,6 +13,10 @@ version, a CUDA tensor launches the kernel or raises.  The plain versions
 over the BVH's triangles with ``geometry.intersect.triangle_t`` and an
 argmin (lowest index on ties, as the kernel breaks them); the CPU tests
 use them, and ``chip_smoke.py`` holds the kernel against them on the card.
+``closest_query`` and ``any_query`` call ``closest_hit`` and ``any_hit``
+through registered operators (``torch.ops.lumo_tpu_torch.bvh_closest`` /
+``bvh_any``), the route ``scene/trace.py`` takes, so that a checkpointed
+bounce can save their outputs.
 
 ``closest_hit_stats`` is the counterpart of ``pallas_bvh.closest_hit_stats``
 (the TPU kernel's ``stats=True`` mode): the closest hit plus traversal
@@ -29,9 +33,9 @@ import numpy as np
 import torch
 
 from lumo_tpu_torch.accel import cuda_build
-from lumo_tpu_torch.accel.cuda_build import (check_counts, check_tensor,
-                                              count_ptrs, ptr, raise_on,
-                                              stream)
+from lumo_tpu_torch.accel.cuda_build import (check_counts, check_no_grad,
+                                              check_tensor, count_ptrs, ptr,
+                                              raise_on, stream)
 from lumo_tpu_torch.accel.walk import (INFLATE, keep_better, leaf_best, rows,
                                         slab_reciprocals, stack_put,
                                         stack_take)
@@ -164,8 +168,10 @@ def closest_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     kernel's record fetches, triangle tests and the warp trips of its
     interior and leaf phases; ``seen``, a zeroed (K + T,) uint8 CUDA
     tensor given with ``counts``, receives a 1 for each of the K records
-    and T triangles the launch read."""
+    and T triangles the launch read.  Raises when ``o``, ``d`` or
+    ``t_max`` requires grad: the walk is not differentiated."""
     t_max = rows(t_max, o)
+    check_no_grad("BVH closest-hit", o, d, t_max)
     if o.device.type == "cpu":
         return closest_hit_plain(bvh, tri, o, d, t_max)
     if o.device.type != "cuda":
@@ -182,6 +188,7 @@ def closest_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
 def any_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     """True where any triangle lies in (0, t_max); see :func:`closest_hit`."""
     t_max = rows(t_max, o)
+    check_no_grad("BVH any-hit", o, d, t_max)
     if o.device.type == "cpu":
         return any_hit_plain(bvh, tri, o, d, t_max)
     if o.device.type != "cuda":
@@ -191,6 +198,55 @@ def any_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
             seen)
     LAUNCHES["any"] += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# the queries as registered operators
+
+# ``scene/trace.py`` calls the queries through these two operators, so that
+# the fixed-depth integrator's selective checkpoint (which sees operators,
+# not Python functions) can save their outputs and never run a walk again
+# in the backward.  Each calls the module's ``closest_hit`` / ``any_hit`` as
+# looked up at call time: the kernel on a CUDA tensor, the plain version on
+# a CPU one, or whatever a caller patched in.
+_BVH_ARGS = ("Tensor nodes, Tensor tris, Tensor a, Tensor b, Tensor c, "
+             "int depth, Tensor o, Tensor d, Tensor t_max")
+
+
+def _closest_op(nodes, tris, a, b, c, depth, o, d, t_max):
+    return closest_hit({"nodes": nodes, "tris": tris, "depth": depth},
+                       (a, b, c), o, d, t_max)
+
+
+def _any_op(nodes, tris, a, b, c, depth, o, d, t_max):
+    return any_hit({"nodes": nodes, "tris": tris, "depth": depth}, (a, b, c),
+                   o, d, t_max)
+
+
+# held here: torch keeps operator definitions only weakly
+_DEFS = (
+    torch.library.custom_op("lumo_tpu_torch::bvh_closest", _closest_op,
+                            mutates_args=(),
+                            schema=f"({_BVH_ARGS}) -> (Tensor, Tensor)"),
+    torch.library.custom_op("lumo_tpu_torch::bvh_any", _any_op,
+                            mutates_args=(), schema=f"({_BVH_ARGS}) -> Tensor"))
+
+
+# the operators whose outputs a checkpointed bounce saves
+OPS = (torch.ops.lumo_tpu_torch.bvh_closest.default,
+       torch.ops.lumo_tpu_torch.bvh_any.default)
+
+
+def closest_query(bvh, tri, o, d, t_max):
+    """:func:`closest_hit` through its registered operator."""
+    return torch.ops.lumo_tpu_torch.bvh_closest(
+        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, rows(t_max, o))
+
+
+def any_query(bvh, tri, o, d, t_max):
+    """:func:`any_hit` through its registered operator."""
+    return torch.ops.lumo_tpu_torch.bvh_any(
+        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, rows(t_max, o))
 
 
 def _chunks(o, T):

@@ -149,3 +149,15 @@ def check_tensor(name, x, dev, dtype, shape=None, tail=None):
         raise ValueError(f"{name} must be (n, {', '.join(map(str, tail))})")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_no_grad(what, o, d, t_max) -> None:
+    """Raise when a traversal query is handed rays that require grad: the
+    walk is not differentiated, so the caller detaches ``o``, ``d`` and
+    ``t_max`` first (``scene/trace.py`` does, and re-derives the hit
+    distance differentiably from the prim id)."""
+    for name, x in (("o", o), ("d", d), ("t_max", t_max)):
+        if isinstance(x, torch.Tensor) and x.requires_grad:
+            raise ValueError(
+                f"{what}: {name} requires grad; traversal is not "
+                f"differentiated, so pass {name}.detach()")

@@ -17,6 +17,9 @@ version, a CUDA tensor launches the kernel or raises.  The plain versions
 the counterpart of ``traverse._kd_walk``, over the same packed tables the
 kernel reads, so the CPU tests cover the packer; the dense test of
 ``bvh_kernel.closest_hit_plain`` stays the second yardstick.
+``closest_query`` and ``any_query`` call ``closest_hit`` and ``any_hit``
+through registered operators (``torch.ops.lumo_tpu_torch.kd_closest`` /
+``kd_any``), the route ``scene/trace.py`` takes.
 """
 from __future__ import annotations
 
@@ -29,9 +32,9 @@ from lumo_tpu_torch.accel import cuda_build
 from lumo_tpu_torch.accel.walk import (INFLATE, keep_better, leaf_best, rows,
                                         slab_reciprocals, stack_put,
                                         stack_take)
-from lumo_tpu_torch.accel.cuda_build import (check_counts, check_tensor,
-                                              count_ptrs, ptr, raise_on,
-                                              stream)
+from lumo_tpu_torch.accel.cuda_build import (check_counts, check_no_grad,
+                                              check_tensor, count_ptrs, ptr,
+                                              raise_on, stream)
 from lumo_tpu_torch.config import INF
 from lumo_tpu_torch.geometry.intersect import ray_setup
 
@@ -161,8 +164,10 @@ def closest_hit(kd, o, d, t_max=INF, counts=None, seen=None):
     kernel's node visits and triangle tests and, for each, the sum over
     warps of the warp's largest lane count; ``seen``, a zeroed (M + R + T,) uint8 CUDA
     tensor given with ``counts``, receives a 1 for each of the M nodes, R
-    leaf references and T triangles the launch read."""
+    leaf references and T triangles the launch read.  Raises when ``o``,
+    ``d`` or ``t_max`` requires grad: the walk is not differentiated."""
     t_max = rows(t_max, o)
+    check_no_grad("kd closest-hit", o, d, t_max)
     if o.device.type == "cpu":
         return closest_hit_plain(kd, o, d, t_max)
     if o.device.type != "cuda":
@@ -179,6 +184,7 @@ def closest_hit(kd, o, d, t_max=INF, counts=None, seen=None):
 def any_hit(kd, o, d, t_max=INF, counts=None, seen=None):
     """True where any triangle lies in (0, t_max); see :func:`closest_hit`."""
     t_max = rows(t_max, o)
+    check_no_grad("kd any-hit", o, d, t_max)
     if o.device.type == "cpu":
         return any_hit_plain(kd, o, d, t_max)
     if o.device.type != "cuda":
@@ -188,6 +194,55 @@ def any_hit(kd, o, d, t_max=INF, counts=None, seen=None):
             seen)
     LAUNCHES["any"] += 1
     return occ
+
+
+# the queries as registered operators, for the selective checkpoint of the
+# fixed-depth integrator (see the same section of ``bvh_kernel``)
+_KD_ARGS = ("Tensor nodes, Tensor refs, Tensor tris, Tensor root, int depth, "
+            "Tensor o, Tensor d, Tensor t_max")
+
+
+def _tree(nodes, refs, tris, root, depth):
+    return {"nodes": nodes, "refs": refs, "tris": tris, "root": root,
+            "depth": depth}
+
+
+def _closest_op(nodes, refs, tris, root, depth, o, d, t_max):
+    return closest_hit(_tree(nodes, refs, tris, root, depth), o, d, t_max)
+
+
+def _any_op(nodes, refs, tris, root, depth, o, d, t_max):
+    return any_hit(_tree(nodes, refs, tris, root, depth), o, d, t_max)
+
+
+# held here: torch keeps operator definitions only weakly
+_DEFS = (
+    torch.library.custom_op("lumo_tpu_torch::kd_closest", _closest_op,
+                            mutates_args=(),
+                            schema=f"({_KD_ARGS}) -> (Tensor, Tensor)"),
+    torch.library.custom_op("lumo_tpu_torch::kd_any", _any_op,
+                            mutates_args=(), schema=f"({_KD_ARGS}) -> Tensor"))
+
+
+# the operators whose outputs a checkpointed bounce saves
+OPS = (torch.ops.lumo_tpu_torch.kd_closest.default,
+       torch.ops.lumo_tpu_torch.kd_any.default)
+
+
+def _tables(kd):
+    return kd["nodes"], kd["refs"], kd["tris"], kd["root"], kd["depth"]
+
+
+def closest_query(kd, o, d, t_max):
+    """:func:`closest_hit` through its registered operator."""
+    return torch.ops.lumo_tpu_torch.kd_closest(*_tables(kd), o, d,
+                                               rows(t_max, o))
+
+
+def any_query(kd, o, d, t_max):
+    """:func:`any_hit` through its registered operator."""
+    return torch.ops.lumo_tpu_torch.kd_any(*_tables(kd), o, d,
+                                           rows(t_max, o))
 
 
 def grid(query: str, n: int):

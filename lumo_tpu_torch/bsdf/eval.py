@@ -8,6 +8,10 @@ row and the families present are evaluated masked; results select by
 kind tag.  Which families are built is decided on the host from the
 scene's set of kinds (``kinds_present``), as the JAX package decides it
 at trace time.
+
+Differentiability, as in the JAX package: sampled directions and discrete
+choices are detached; f and pdf stay differentiable in every float leaf
+of the material table.
 """
 from __future__ import annotations
 
@@ -229,7 +233,9 @@ def sample(mp, wo_w, ns, backface, lam, u_lobe, u_sq):
     # (reference ``bxdf.rs:44-55,109-112``)
     ok = ok & ~backface
     ok = ok & (kind != LIGHT) & (kind != BLANK)
-    wi_w = normalize(onb.to_world(ns, wi), eps=_TINY)
+    # the sampled direction is a discrete draw: detached, as in the JAX
+    # package; f and pdf stay differentiable in the material table
+    wi_w = normalize(onb.to_world(ns, wi).detach(), eps=_TINY)
     return wi_w, ok, lam
 
 

@@ -4,6 +4,12 @@ Counterpart of ``lumo_tpu/camera.py`` (reference ``camera*``), forward
 ray generation only: matrices are baked on the host in float64 numpy and
 ``generate_ray`` runs over raster-coordinate wavefronts.  The
 bidirectional importance/pdf queries come with the BDPT slice.
+
+Every field but ``kind`` and ``resolution`` is a tensor, so ``c2w_t``,
+``c2w_rot``, ``lens_radius`` and ``focal_length`` can be differentiated
+(``dataclasses.replace`` with leaves that require grad); ``generate_ray``
+computes the pinhole and the thin-lens rays and selects with
+``torch.where``, as the JAX camera does.
 """
 from __future__ import annotations
 
@@ -73,8 +79,8 @@ class Camera:
     r2c: torch.Tensor            # (4, 4) raster -> camera (projective)
     c2w_rot: torch.Tensor        # (3, 3) camera -> world rotation
     c2w_t: torch.Tensor          # (3,) camera origin in world
-    lens_radius: float
-    focal_length: float
+    lens_radius: torch.Tensor    # () thin-lens radius, 0 for a pinhole
+    focal_length: torch.Tensor   # () focus distance of the thin lens
     kind: int
     resolution: tuple
 
@@ -97,14 +103,16 @@ class Camera:
             xo_local = p_cam
             wi_local = torch.zeros_like(p_cam)
             wi_local[:, 2] = 1.0
-        if self.lens_radius > 0.0:
-            # thin-lens depth of field (reference ``camera.rs:221-243``)
-            lens_xy = self.lens_radius * maps.square_to_disk(u_dof)
-            lens = torch.cat([lens_xy, zeros], -1)
-            focus_dist = self.focal_length / torch.clamp(wi_local[..., 2:3],
-                                                         min=_TINY)
-            xo_local = xo_local + lens
-            wi_local = focus_dist * wi_local - lens
+        # thin-lens depth of field (reference ``camera.rs:221-243``), both
+        # branches computed so that lens_radius stays differentiable
+        lens_xy = self.lens_radius * maps.square_to_disk(u_dof)
+        lens = torch.cat([lens_xy, zeros], -1)
+        focus_dist = self.focal_length / torch.clamp(wi_local[..., 2:3],
+                                                     min=_TINY)
+        use_dof = self.lens_radius > 0.0
+        xo_local = torch.where(use_dof, xo_local + lens, xo_local)
+        wi_local = torch.where(use_dof, focus_dist * wi_local - lens,
+                               wi_local)
         o = xo_local @ self.c2w_rot.T + self.c2w_t
         d = normalize(wi_local @ self.c2w_rot.T)
         return o, d
@@ -113,19 +121,28 @@ class Camera:
 def build_camera(origin=(0.0, 0.0, 0.0), towards=(0.0, 0.0, -1.0),
                  up=(0.0, 1.0, 0.0), zoom=1.0, lens_radius=0.0,
                  focal_length=0.0, resolution=(1024, 768), vfov=90.0,
-                 kind=PERSPECTIVE, device=None) -> Camera:
+                 kind=PERSPECTIVE, dtype=torch.float32, device=None) -> Camera:
     """Fluent-equivalent of the reference ``CameraBuilder`` defaults
-    (``camera/builder.rs:33-56``).  ``device`` defaults to the card."""
+    (``camera/builder.rs:33-56``); every tensor field in ``dtype``.
+    ``device`` defaults to the card."""
     device = resolve_device(device)
     c2s = _perspective_matrix(vfov) if kind == PERSPECTIVE else _orthographic_matrix()
     w2c = _world_to_camera(origin, towards, up)
     s2r = _screen_to_raster(resolution, zoom)
     r2c = np.linalg.inv(s2r @ c2s)
     c2w = np.linalg.inv(w2c)
-    jf = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                   device=device)
+    jf = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
     w, h = resolution
     return Camera(r2c=jf(r2c), c2w_rot=jf(c2w[:3, :3]), c2w_t=jf(c2w[:3, 3]),
-                  lens_radius=float(np.float32(lens_radius)),
-                  focal_length=float(np.float32(focal_length)),
+                  lens_radius=jf(lens_radius), focal_length=jf(focal_length),
                   kind=kind, resolution=(int(w), int(h)))
+
+
+def cornell_camera(resolution=(512, 512), dtype=torch.float32,
+                   device=None) -> Camera:
+    """The Cornell-box camera (reference ``camera.rs:139-148``).
+    ``device`` defaults to the card."""
+    return build_camera(origin=(278.0, 273.0, -800.0),
+                        towards=(278.0, 273.0, 0.0), zoom=2.8,
+                        focal_length=0.035, resolution=resolution,
+                        dtype=dtype, device=device)

@@ -134,6 +134,10 @@ def offset_ray_origin(p, err, ng, wi):
     outside = (dot(wi, ng) >= 0.0)[..., None]
     offset = torch.where(outside, 1.0, -1.0) * scaled * ng
     xi = p + offset
-    up = torch.nextafter(xi, torch.full_like(xi, INF))
-    down = torch.nextafter(xi, torch.full_like(xi, -INF))
-    return torch.where(offset > 0.0, up, torch.where(offset < 0.0, down, xi))
+    # the nextafter walk is a sub-ulp correction whose derivative is 1:
+    # applied straight through, as in ``lumo_tpu/geometry/intersect.py``
+    xs = xi.detach()
+    up = torch.nextafter(xs, torch.full_like(xs, INF))
+    down = torch.nextafter(xs, torch.full_like(xs, -INF))
+    walked = torch.where(offset > 0.0, up, torch.where(offset < 0.0, down, xs))
+    return xi + (walked - xs)

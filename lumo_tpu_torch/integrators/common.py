@@ -59,11 +59,15 @@ def nee_light_branch(scene, mp, wo, hit, lam, rng):
     the extension ray (:func:`emitter_mis_weight`)."""
     light, pdf_light = trace.sample_light(scene, _randfloat(rng, S_LIGHT))
     u_sq = torch.stack([_randfloat(rng, S_SQ0), _randfloat(rng, S_SQ1)], -1)
-    wi = trace.sample_towards(scene, light, hit["p"], u_sq)
+    # the light-sampled direction is a draw: detached
+    # (``lumo_tpu/integrators/common.py:147``)
+    wi = trace.sample_towards(scene, light, hit["p"], u_sq).detach()
     o = geo.offset_ray_origin(hit["p"], hit["err"], hit["ng"], wi)
     lh = trace.light_hit(scene, light, o, wi)
-    t_max = (torch.where(lh["valid"] & hit["valid"], lh["t"], 0.0)
-             - epsilon()) * _SHRINK
+    # visibility is a discrete decision: its t range is detached
+    # (``lumo_tpu/integrators/common.py:88-90``)
+    t_max = ((torch.where(lh["valid"] & hit["valid"], lh["t"], 0.0)
+              - epsilon()) * _SHRINK).detach()
     occ = trace.occluded(scene, o, wi, t_max)
     visible = lh["valid"] & ~occ
     p_lig = trace.sample_towards_pdf(scene, light, o, wi, lh["p"], lh["ng"])

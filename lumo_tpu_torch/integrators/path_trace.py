@@ -1,16 +1,35 @@
 """Unidirectional path tracer with NEE + MIS and Russian roulette.
 
 Counterpart of ``lumo_tpu/integrators/path_trace.py`` (reference
-``path_trace.rs``) in its forward while-loop mode: every lane of a
-fixed-shape SoA path state advances one bounce per iteration under an
-alive mask, and a Python loop runs until no lane is alive or
-``max_depth`` bounces have run.  All randomness is a counter hash of the
-per-ray ``ray_key``, so a lane's path matches the JAX package's bit for
-bit in its random draws.
+``path_trace.rs``): every lane of a fixed-shape SoA path state advances
+one bounce per iteration under an alive mask.  Three loops share
+:func:`bounce`:
+
+- ``integrate``: a Python loop until no lane is alive or ``max_depth``
+  bounces have run (one host ``any()`` per bounce);
+- ``integrate(..., fixed_depth=k)``: exactly ``k`` bounces and no host
+  sync, the mode that is differentiated.  Autograd keeps every bounce's
+  intermediates; with ``checkpoint=True`` each bounce runs under a
+  selective activation checkpoint that saves only the traversal queries'
+  outputs, so the backward recomputes the shading glue and never walks a
+  tree again (the JAX package's ``"geom"`` tape).  Either way each query
+  runs once per bounce;
+- ``integrate_stream``: the persistent wavefront, whose dead lanes pick
+  up fresh samples.
+
+All randomness is a counter hash of the per-ray ``ray_key``, so a lane's
+path matches the JAX package's bit for bit in its random draws, and a
+sample's radiance does not depend on the lane or iteration that traced
+it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from lumo_tpu_torch.bsdf import eval as bsdf
 from lumo_tpu_torch.color import space, wavelength
@@ -93,7 +112,7 @@ def bounce(scene, s, delta):
     do_rr = s["depth"] >= RR_DEPTH
     alive = alive & ~(do_rr & (u_rr > rr_prob))
     rr_div = torch.where(do_rr & alive, torch.clamp(rr_prob, min=_TINY), 1.0)
-    gathered = gathered / rr_div[..., None]
+    gathered = gathered / rr_div.detach()[..., None]
 
     a3 = alive[..., None]
     out = {
@@ -111,7 +130,29 @@ def bounce(scene, s, delta):
         # lanes: the discrete path topology
         "prim": torch.where(s["alive"] & hit["valid"], hit["prim"], -1),
     }
+    for k in s:                         # per-sample metadata rides along
+        out.setdefault(k, s[k])
     return out
+
+
+def _save_queries(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the traversal queries' outputs,
+    recompute everything else."""
+    if op in trace.QUERY_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_CHECKPOINT_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
+                                         _save_queries)
+
+
+def _checkpointed_bounce(scene, s, delta):
+    # every draw is a counter hash of the state, so the recompute needs no
+    # saved generator state
+    return torch.utils.checkpoint.checkpoint(
+        bounce, scene, s, delta, use_reentrant=False,
+        context_fn=_CHECKPOINT_CONTEXTS, preserve_rng_state=False)
 
 
 def initial_state(o, d, lam, ray_key):
@@ -130,27 +171,127 @@ def initial_state(o, d, lam, ray_key):
 
 
 def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
-              max_depth=MAX_DEPTH, trace_prims=False):
-    """Trace a wavefront of N camera rays to completion.
+              max_depth=MAX_DEPTH, trace_prims=False, fixed_depth=None,
+              checkpoint=False):
+    """Trace a wavefront of N camera rays.
 
-    o, d (N, 3); lam (N, 4) hero wavelengths; delta: the RR threshold.
-    ``ray_key``: (N,) per-ray uint32 counter states (int64 tensor); drawn
-    from ``generator`` with :func:`ray_keys` when not given.  Returns
-    (radiance (N, 4), lam_out (N, 4), depth (N,)), and with
-    ``trace_prims`` also the per-bounce hit prim ids (bounces, N)."""
+    o, d (N, 3); lam (N, 4) hero wavelengths; delta: the RR threshold, a
+    scalar or (N,).  ``ray_key``: (N,) per-ray uint32 counter states
+    (int64 tensor); drawn from ``generator`` with :func:`ray_keys` when
+    not given.  Without ``fixed_depth`` the loop runs until no lane is
+    alive or ``max_depth`` bounces have run.  ``fixed_depth=k`` runs
+    exactly k bounces with no host sync, the mode to differentiate.  With
+    ``checkpoint`` (and grad enabled) each bounce is checkpointed, saving
+    only the traversal queries' outputs: a third to two thirds of the
+    memory, at about three times the fwd+bwd time on a host-bound card
+    (the JAX package checkpoints by default; ``PERF.md`` gives the H100's
+    numbers).  Returns (radiance (N, 4), lam_out (N, 4), depth
+    (N,)), and with ``trace_prims`` also the per-bounce hit prim ids
+    (bounces, N)."""
     N = o.shape[0]
     dev = o.device
     if ray_key is None:
         ray_key = ray_keys(generator, N, device=dev)
     s = initial_state(o, d, lam, ray_key)
     prims = []
-    for _ in range(max_depth):
-        if not bool(s["alive"].any()):
-            break
-        s = bounce(scene, s, delta)
-        prims.append(s["prim"])
+    if fixed_depth is None:
+        for _ in range(max_depth):
+            if not bool(s["alive"].any()):
+                break
+            s = bounce(scene, s, delta)
+            prims.append(s["prim"])
+    else:
+        step = (_checkpointed_bounce if checkpoint and torch.is_grad_enabled()
+                else bounce)
+        for _ in range(fixed_depth):
+            s = step(scene, s, delta)
+            prims.append(s["prim"])
     if trace_prims:
         stacked = (torch.stack(prims) if prims else
                    torch.empty((0, N), dtype=torch.int64, device=dev))
         return s["radiance"], s["lam"], s["depth"], stacked
     return s["radiance"], s["lam"], s["depth"]
+
+
+# ---------------------------------------------------------------------------
+# persistent wavefront with path regeneration
+
+def _fresh(state, f, mask):
+    """``state`` with the lanes of ``mask`` restarted from the generated
+    samples ``f`` (o, d, lam, rng and any metadata)."""
+    m1, m3 = mask, mask[..., None]
+    out = dict(state)
+    out["o"] = torch.where(m3, f["o"], state["o"])
+    out["d"] = torch.where(m3, f["d"], state["d"])
+    out["lam"] = torch.where(m3, f["lam"], state["lam"])
+    out["rng"] = torch.where(m1, f["rng"], state["rng"])
+    out["radiance"] = torch.where(m3, 0.0, state["radiance"])
+    out["gathered"] = torch.where(m3, 1.0, state["gathered"])
+    out["did_nee"] = torch.where(m1, False, state["did_nee"])
+    out["p_sct"] = torch.where(m1, 1.0, state["p_sct"])
+    out["depth"] = torch.where(m1, 0, state["depth"])
+    out["alive"] = state["alive"] | m1
+    for k, v in f.items():
+        if k in ("o", "d", "lam", "rng"):
+            continue
+        if k not in state:
+            out[k] = v
+        else:
+            m = mask.view(mask.shape + (1,) * (v.ndim - 1))
+            out[k] = torch.where(m, v, state[k])
+    return out
+
+
+def integrate_stream(scene, gen, fold, acc0, n_lanes, n_samples, delta=1.0,
+                     max_bounces=MAX_DEPTH, delta_fn=None):
+    """Path tracing at full lane occupancy: a lane whose path ends picks up
+    the next unissued sample at once, instead of idling through the
+    Russian-roulette tail of its wavefront (``lumo_tpu/integrators/
+    path_trace.py::integrate_stream``).
+
+    Every draw of the bounce is a counter hash of the sample's ``ray_key``,
+    so a sample's radiance equals its batch-mode value whichever lane or
+    iteration traces it.
+
+    gen(idx (L,) int64) -> state dict with o (L, 3), d (L, 3), lam (L, 4),
+        rng (L,) [the sample's ray_key] and any per-sample metadata (for
+        example "pix"), which rides along untouched and is visible to
+        ``fold``.
+    fold(acc, term (L,) bool, state) -> acc: called once per wavefront
+        iteration with the lanes that have just terminated; reads
+        state["radiance"], ["lam"], ["depth"] and the metadata.
+    delta_fn(acc, state) -> (L,) per-lane RR threshold, evaluated every
+        iteration from the running accumulator (the renderer's adaptive
+        delta = sqrt(var/cost)); overrides ``delta`` when given.
+    Samples are issued in index order, the dead lanes of an iteration
+    taking the next ones by a cumulative sum; one ``any()`` test per
+    iteration ends the loop.  Returns the final acc."""
+    L = n_lanes
+    dev = scene.device
+    idx0 = torch.arange(L, dtype=torch.int64, device=dev)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    state = {
+        "o": zeros(L, 3), "d": zeros(L, 3), "lam": zeros(L, 4),
+        "radiance": zeros(L, 4), "gathered": torch.ones((L, 4), device=dev),
+        "alive": torch.zeros(L, dtype=torch.bool, device=dev),
+        "did_nee": torch.zeros(L, dtype=torch.bool, device=dev),
+        "p_sct": torch.ones(L, device=dev),
+        "depth": torch.zeros(L, dtype=torch.int32, device=dev),
+        "rng": torch.zeros(L, dtype=torch.int64, device=dev),
+    }
+    state = _fresh(state, gen(torch.clamp(idx0, max=n_samples - 1)),
+                   idx0 < n_samples)
+    issued = torch.full((), min(L, n_samples), dtype=torch.int64, device=dev)
+    acc = acc0
+    while bool(state["alive"].any()):
+        d = delta if delta_fn is None else delta_fn(acc, state)
+        s2 = bounce(scene, state, d)
+        s2["alive"] = s2["alive"] & (s2["depth"] < max_bounces)
+        term = state["alive"] & ~s2["alive"]
+        acc = fold(acc, term, s2)
+        dead = ~s2["alive"]
+        new_idx = issued + torch.cumsum(dead, 0) - 1
+        can = dead & (new_idx < n_samples)
+        state = _fresh(s2, gen(torch.clamp(new_idx, max=n_samples - 1)), can)
+        issued = torch.clamp(issued + dead.sum(), max=n_samples)
+    return acc

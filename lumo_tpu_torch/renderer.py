@@ -4,10 +4,13 @@ Counterpart of ``lumo_tpu/renderer.py`` (reference builder-pattern
 ``Renderer``, ``src/renderer.rs``): configuration (samples / integrator /
 seed / sampler / tone map / filter) plus ``render()``.  One wavefront step
 covers the whole image times a sample sub-batch; ``render`` iterates it and
-scatter-adds into a film that stays on the scene's device.  The path
-integrator in batch mode is ported; stream mode, the direct-light and
-bidirectional integrators and rendering over several devices raise with
-the number of their item in ``ROADMAP.md``.
+scatter-adds into a film that stays on the scene's device.  ``.stream()``
+renders through the persistent wavefront instead
+(``path_trace.integrate_stream``), folding each terminated lane into the
+film and the per-pixel stats.  The path integrator is ported, in both
+modes, on one device; the direct-light and bidirectional integrators and
+rendering over several devices raise with the number of their item in
+``ROADMAP.md``.
 
 Every random draw of ``work`` is a counter hash of (pixel, sample index,
 seed), so a render is a pure function of its configuration and needs no
@@ -54,6 +57,7 @@ class Renderer:
         self._illuminant = "D65"
         self._batch = None  # samples per step (auto)
         self._delta = None  # None: adaptive RR (task.rs:42-53); float: fixed
+        self._stream = False  # persistent wavefront instead of batches
         self._debug = False  # paint NaN/neg/huge radiance (tone_mapping.rs:42-56)
 
     # fluent config (mirrors reference ``renderer.rs:66-99``)
@@ -116,9 +120,13 @@ class Renderer:
         raise _not_ported("the 'bdpt' integrator", 8)
 
     def stream(self, on=True):
-        """Persistent-wavefront mode of the JAX package."""
-        if on:
-            raise _not_ported("stream mode", 4)
+        """Persistent-wavefront mode: terminated lanes pick up fresh
+        samples at once instead of idling through the Russian-roulette
+        tail of their batch.  Same estimator and counter-based randomness
+        as batch mode, so each sample's radiance is the same; the per-pixel
+        adaptive delta updates every wavefront iteration from the running
+        stats."""
+        self._stream = bool(on)
         return self
 
     def devices(self, n):
@@ -136,32 +144,22 @@ class Renderer:
         per = max(1, int(2_000_000 / max(w * h, 1)))
         return max(1, min(per, self._samples))
 
-    def _make_work(self, spp_batch, total_spp):
-        """Build work(ray_ids, sample_base, stats) -> (film_partial,
-        stats_partial, rays): the per-ray render function.  ray_ids index
-        the (spp_batch x n_pix) wavefront; all randomness is a counter
-        hash of (pixel, sample index, seed), so any partition of ray_ids
-        produces the same image."""
-        scene = self.scene
+    def _sample_gen(self, total_spp):
+        """gen(idx) -> the camera samples of sample ids ``idx`` (int64,
+        pixel ``idx % n_pix``, sample index ``idx // n_pix``): o, d, lam,
+        rng (the per-ray key), raster and pix.  All randomness is a counter
+        hash of (pixel, sample index, seed)."""
         camera = self.camera
-        filt = self._filter
         sampler_kind = self._sampler
-        tone_kind = self._tone_map
-        tone_arg = self._tone_arg
         seed = self._seed
         w, h = camera.resolution
         n_pix = w * h
-        dev = scene.device
-        wbm = film_mod.wb_matrix(self._colorspace, self._illuminant)
-        fixed_delta = self._delta
-        debug = self._debug
         lam_seed = (seed * 7919 + 13) & MASK32
         key_seed = (seed * 0x85EBCA6B + 0x9E3779B9) & MASK32
 
-        def work(ray_ids, sample_base, stats):
-            N = ray_ids.shape[0]
-            pix = ray_ids % n_pix
-            sidx = (ray_ids // n_pix + int(sample_base)) & MASK32
+        def gen(idx):
+            pix = idx % n_pix
+            sidx = (idx // n_pix) & MASK32
             px = (pix % w).to(torch.float32)
             py = (pix // w).to(torch.float32)
             offs = samplers.pixel_offsets(sampler_kind, sidx, total_spp,
@@ -174,44 +172,83 @@ class Renderer:
             u_dof = torch.stack([_randfloat(ray_key, 0x7FB5D329),
                                  _randfloat(ray_key, 0x8AD8CE61)], dim=-1)
             o, d = camera.generate_ray(raster, u_dof)
+            return {"o": o, "d": d, "lam": lam, "rng": ray_key,
+                    "raster": raster, "pix": pix}
 
-            # Russian-roulette threshold: per-pixel adaptive
-            # delta = sqrt(var/cost) over all samples accumulated so far
-            # (reference ``renderer/task.rs:42-53``; 1e-5 floor while the
-            # variance estimate is empty or degenerate), or the fixed value.
-            if fixed_delta is not None:
-                delta = fixed_delta
-            else:
-                cnt = torch.clamp(stats["n"], min=1.0)
-                var = stats["f2"] - stats["f"] ** 2 / cnt
-                ok = (var > 0.0) & (stats["cost"] > 0.0) & (stats["n"] > 1.0)
-                delta_pix = torch.where(
-                    ok, torch.sqrt(torch.where(ok, var, 1.0)
-                                   / torch.clamp(stats["cost"], min=1.0)),
-                    1e-5)
-                delta = delta_pix[pix]
+        return gen
 
-            radiance, lam_out, depth = path_trace.integrate(
-                scene, o, d, lam, ray_key=ray_key, delta=delta)
+    def _delta_of(self, stats, pix):
+        """Russian-roulette threshold per ray of pixels ``pix``: the fixed
+        value, or the per-pixel adaptive delta = sqrt(var/cost) over all
+        samples accumulated so far (reference ``renderer/task.rs:42-53``;
+        1e-5 floor while the variance estimate is empty or degenerate)."""
+        if self._delta is not None:
+            return self._delta
+        cnt = torch.clamp(stats["n"], min=1.0)
+        var = stats["f2"] - stats["f"] ** 2 / cnt
+        ok = (var > 0.0) & (stats["cost"] > 0.0) & (stats["n"] > 1.0)
+        delta_pix = torch.where(
+            ok, torch.sqrt(torch.where(ok, var, 1.0)
+                           / torch.clamp(stats["cost"], min=1.0)), 1e-5)
+        return delta_pix[pix]
+
+    def _make_fold(self):
+        """fold(film, stats, samples, radiance, lam_out, depth, mask=None)
+        -> (stats, rays): tone-map finished samples and scatter them into
+        ``film`` (in place), add their luminance and ray cost to the
+        per-pixel ``stats`` (``task.rs:64-68``) and count the rays they
+        traced; only the lanes of ``mask`` when given."""
+        w, h = self.camera.resolution
+        wbm = film_mod.wb_matrix(self._colorspace, self._illuminant)
+        filt, tone_kind, tone_arg = self._filter, self._tone_map, self._tone_arg
+        debug = self._debug
+
+        def fold(film, stats, samples, radiance, lam_out, depth, mask=None):
             color = film_mod.tone_map(tone_kind, radiance, lam_out, tone_arg,
                                       debug=debug)
             rgb = film_mod.spectral_to_rgb(color, lam_out, wbm)
-            film_p = film_mod.add_samples(
-                film_mod.new_film((w, h), device=dev), filt, raster, rgb,
-                (w, h))
-            # per-pixel running stats for the next batch's adaptive delta
-            # (luminance of the raw radiance + ray cost, ``task.rs:64-68``)
+            film_mod.add_samples(film, filt, samples["raster"], rgb, (w, h),
+                                 mask=mask)
             f_lum = space_mod.luminance(radiance, lam_out)
             cost = depth.to(torch.float32) * 2.0 + 1.0
-            zeros = lambda: torch.zeros(n_pix, dtype=torch.float32,
-                                        device=dev)
-            stats_p = {
-                "f": zeros().index_add_(0, pix, f_lum),
-                "f2": zeros().index_add_(0, pix, f_lum * f_lum),
-                "cost": zeros().index_add_(0, pix, cost),
-                "n": zeros().index_add_(0, pix, torch.ones_like(cost)),
+            one = torch.ones_like(cost)
+            n = depth.shape[0]
+            if mask is not None:
+                f_lum, cost, one = (torch.where(mask, x, 0.0)
+                                    for x in (f_lum, cost, one))
+                depth = torch.where(mask, depth, 0)
+                n = mask.sum()
+            pix = samples["pix"]
+            stats = {
+                "f": stats["f"].index_add(0, pix, f_lum),
+                "f2": stats["f2"].index_add(0, pix, f_lum * f_lum),
+                "cost": stats["cost"].index_add(0, pix, cost),
+                "n": stats["n"].index_add(0, pix, one),
             }
-            rays = depth.sum() + N
+            return stats, depth.sum() + n
+
+        return fold
+
+    def _make_work(self, spp_batch, total_spp):
+        """Build work(ray_ids, sample_base, stats) -> (film_partial,
+        stats_partial, rays): the per-ray render function.  ray_ids index
+        the (spp_batch x n_pix) wavefront; all randomness is a counter
+        hash of (pixel, sample index, seed), so any partition of ray_ids
+        produces the same image."""
+        scene = self.scene
+        w, h = self.camera.resolution
+        n_pix = w * h
+        gen = self._sample_gen(total_spp)
+        fold = self._make_fold()
+
+        def work(ray_ids, sample_base, stats):
+            smp = gen(ray_ids + int(sample_base) * n_pix)
+            radiance, lam_out, depth = path_trace.integrate(
+                scene, smp["o"], smp["d"], smp["lam"], ray_key=smp["rng"],
+                delta=self._delta_of(stats, smp["pix"]))
+            film_p = film_mod.new_film((w, h), device=scene.device)
+            stats_p, rays = fold(film_p, self.new_stats(n_pix), smp,
+                                 radiance, lam_out, depth)
             return film_p, stats_p, rays
 
         return work
@@ -229,8 +266,46 @@ class Renderer:
         return (tuple(a + b for a, b in zip(film, film_p)),
                 {k: stats[k] + stats_p[k] for k in stats}, rays)
 
+    def _render_stream(self, verbose=True):
+        """Persistent-wavefront render (see :meth:`stream`): every (pixel,
+        sample) is traced once by ``path_trace.integrate_stream``, dead
+        lanes taking the next samples at once; each iteration folds the
+        lanes that have just terminated into the film and the stats, and
+        the adaptive delta of the live lanes follows the running stats."""
+        w, h = self.camera.resolution
+        n_pix = w * h
+        n_samples = n_pix * self._samples
+        # 4 lanes per pixel, capped at one wavefront of 262,144
+        lanes = min(n_samples, max(4 * n_pix, 8192), 262144)
+        fold_samples = self._make_fold()
+
+        def fold(acc, term, st):
+            film, stats, rays = acc
+            stats, r = fold_samples(film, stats, st, st["radiance"], st["lam"],
+                                    st["depth"], mask=term)
+            return film, stats, rays + r
+
+        t0 = time.time()
+        film = film_mod.new_film((w, h), device=self.scene.device)
+        film, _, rays = path_trace.integrate_stream(
+            self.scene, self._sample_gen(self._samples), fold,
+            (film, self.new_stats(n_pix), 0), lanes, n_samples,
+            delta_fn=lambda acc, st: self._delta_of(acc[1], st["pix"]))
+        img = film_mod.finalize(film, self._filter, 1.0 / self._samples)
+        out = img.cpu().numpy()
+        if verbose:
+            el = time.time() - t0
+            total_rays = int(rays)
+            print(f"Rendered {w}x{h}@{self._samples}spp (stream) on "
+                  f"{self.scene.device}: {total_rays / 1e6:.1f} Mrays in "
+                  f"{el:.1f}s = {total_rays / max(el, 1e-9) / 1e6:.2f} Mray/s",
+                  flush=True)
+        return out
+
     def render(self, verbose=True):
         """Render and return the linear-RGB image (H, W, 3) numpy array."""
+        if self._stream:
+            return self._render_stream(verbose)
         w, h = self.camera.resolution
         spp_batch = self._auto_batch()
         work = self._make_work(spp_batch, self._samples)

@@ -8,7 +8,14 @@ tested densely; BVH scenes go through ``accel.bvh_kernel`` (the CUDA
 kernel on the card), with the split-out walls tested densely first so
 that every walk starts pruned; kd-tree scenes go through
 ``accel.kd_kernel`` and keep their walls in the tree.  Plain indexing replaces the JAX package's
-one-hot gathers.  The traversal is not differentiated.
+one-hot gathers.
+
+The traversal is not differentiated: the walks get detached rays and
+``t_max`` (``lumo_tpu/scene/trace.py:111-112,128,481-482``), and the hit
+distance they return is re-derived differentiably from the prim id by
+:class:`_HitT` (``_hit_t``, ``lumo_tpu/scene/trace.py:59-94``).  The dense
+path (small scenes, and the split-out walls of a BVH scene) stays plain
+differentiable ``triangle_t``.
 """
 from __future__ import annotations
 
@@ -24,9 +31,17 @@ from lumo_tpu_torch.scene.materials import LIGHT
 from lumo_tpu_torch.scene.scene import SceneData
 
 
+# the registered traversal operators, whose outputs a checkpointed bounce
+# saves (``integrators/path_trace.py``)
+QUERY_OPS = frozenset(bvh_kernel.OPS + kd_kernel.OPS)
+
+
 def _bvh_tris(scene: SceneData):
+    """The BVH's triangles, as its plain version reads them (detached:
+    the walk is not differentiated)."""
     n = scene.n_bvh_tris
-    return scene.tri_a[:n], scene.tri_b[:n], scene.tri_c[:n]
+    return tuple(x[:n].detach() for x in (scene.tri_a, scene.tri_b,
+                                          scene.tri_c))
 
 
 def _wall_t(scene: SceneData, o, d, t_max):
@@ -40,13 +55,60 @@ def _wall_t(scene: SceneData, o, d, t_max):
     return t
 
 
+class _HitT(torch.autograd.Function):
+    """Differentiable hit distance of a traversal query.  Forward: the
+    kernel's own ``t_k`` where ``hit``, INF elsewhere, with no triangle
+    gather.  Backward: gathers each lane's triangle by ``prim`` (its row
+    of the vertex tables ``a``, ``b``, ``c``) and pulls the cotangent
+    through the Woop recompute of ``t``, gated by ``hit`` and a finite
+    recomputed ``t``; the walk itself stays opaque."""
+
+    @staticmethod
+    def forward(ctx, o, d, a, b, c, prim, t_k, hit):
+        ctx.save_for_backward(o, d, a, b, c, prim, hit)
+        return torch.where(hit, t_k, INF)
+
+    @staticmethod
+    def backward(ctx, g):
+        o, d, a, b, c, prim, hit = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [o.detach(), d.detach(),
+                      *(x.detach()[prim] for x in (a, b, c))]
+            for x, n in zip(leaves, need):
+                x.requires_grad_(n)
+            kz, shear = geo.ray_setup(leaves[1])
+            t_re, _, _ = geo.triangle_t(leaves[0], kz, shear,
+                                        *(x[:, None] for x in leaves[2:]),
+                                        0.0, INF)
+            t_re = t_re[:, 0]
+            gate = hit & torch.isfinite(t_re)
+            wanted = [x for x, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(
+                t_re, wanted, torch.where(gate, g, 0.0)) if wanted else ())
+        out = [next(grads) if n else None for n in need]
+        for i, table in ((2, a), (3, b), (4, c)):
+            if out[i] is not None:      # rows back into the vertex table
+                out[i] = torch.zeros_like(table).index_add_(0, prim, out[i])
+        return (*out, None, None, None)
+
+
+def _hit_t(scene: SceneData, o, d, t_k, p):
+    """The traversal's (t_k, prim p, -1 on a miss) as a differentiable hit
+    distance over the scene's global triangle tables."""
+    p_safe = torch.clamp(p, 0, max(scene.n_tris - 1, 0))
+    return _HitT.apply(o, d, scene.tri_a, scene.tri_b, scene.tri_c, p_safe,
+                       t_k, p >= 0)
+
+
 def _closest(scene: SceneData, o, d, t_max):
     """(t, global prim id) closest hit: kd-tree or BVH traversal when
     built, dense otherwise (prim 0 with t = INF on a miss)."""
     t_max = rows(t_max, o)
     if scene.kdtree is not None:
-        t, p = kd_kernel.closest_hit(scene.kdtree, o, d, t_max)
-        return t, torch.where(p < 0, 0, p)
+        t_k, p = kd_kernel.closest_query(scene.kdtree, o.detach(), d.detach(),
+                                         t_max.detach())
+        return _hit_t(scene, o, d, t_k, p), torch.where(p < 0, 0, p)
     if scene.bvh is None:
         kz, shear = geo.ray_setup(d)
         ts, _, _ = geo.triangle_t(o, kz, shear, scene.tri_a[None],
@@ -57,14 +119,16 @@ def _closest(scene: SceneData, o, d, t_max):
     # split-out walls: dense test whose hit distance seeds the walk's
     # t_max, so most bounce rays (which end on a wall) start pruned
     t_huge = p_huge = None
-    tm = t_max
+    tm = t_max.detach()
     if scene.n_bvh_tris < scene.n_tris:
         th_all = _wall_t(scene, o, d, t_max)
         p_huge = torch.argmin(th_all, dim=-1)
         t_huge = torch.gather(th_all, -1, p_huge[..., None])[..., 0]
         tm = torch.minimum(tm, torch.where(torch.isfinite(t_huge),
-                                           t_huge * 1.0001, tm))
-    t, p = bvh_kernel.closest_hit(scene.bvh, _bvh_tris(scene), o, d, tm)
+                                           t_huge.detach() * 1.0001, tm))
+    t_k, p = bvh_kernel.closest_query(scene.bvh, _bvh_tris(scene), o.detach(),
+                                      d.detach(), tm)
+    t = _hit_t(scene, o, d, t_k, p)
     prim = torch.where(p < 0, 0, p)
     if t_huge is not None:
         better = t_huge < t
@@ -106,19 +170,20 @@ def occluded(scene: SceneData, o, d, t_max):
     already block enter the walk dead (t_max 0)."""
     t_max = rows(t_max, o)
     if scene.kdtree is not None:
-        return kd_kernel.any_hit(scene.kdtree, o, d, t_max)
+        return kd_kernel.any_query(scene.kdtree, o.detach(), d.detach(),
+                                   t_max.detach())
     if scene.bvh is None:
         kz, shear = geo.ray_setup(d)
         ts, _, _ = geo.triangle_t(o, kz, shear, scene.tri_a[None],
                                   scene.tri_b[None], scene.tri_c[None], 0.0,
                                   t_max[..., None])
         return torch.isfinite(ts).any(dim=-1)
+    o, d, tm = o.detach(), d.detach(), t_max.detach()
     occ_huge = None
-    tm = t_max
     if scene.n_bvh_tris < scene.n_tris:
-        occ_huge = torch.isfinite(_wall_t(scene, o, d, t_max)).any(dim=-1)
+        occ_huge = torch.isfinite(_wall_t(scene, o, d, tm)).any(dim=-1)
         tm = torch.where(occ_huge, 0.0, tm)
-    occ = bvh_kernel.any_hit(scene.bvh, _bvh_tris(scene), o, d, tm)
+    occ = bvh_kernel.any_query(scene.bvh, _bvh_tris(scene), o, d, tm)
     return occ if occ_huge is None else occ | occ_huge
 
 

@@ -292,3 +292,127 @@ def test_exp_sync_kernel_matches_plain(card, variant):
     out_p = exp_sync.run_plain(variant, x, 1000)
     torch.cuda.synchronize()
     assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the differentiable path and the stream through the kernels
+
+def _grad_render(scene, cam, weight, checkpoint=True):
+    """A fixed-depth (4) fwd+bwd of sum(weight * r^2) at 32x32 with every
+    float material leaf and ``c2w_t`` as leaves -> (loss, grads, prims,
+    the kernel launches of the forward and of the backward)."""
+    import dataclasses
+    from lumo_tpu_torch.integrators import path_trace
+    from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
+    from lumo_tpu_torch.color import wavelength
+    mod = kd_kernel if scene.kdtree is not None else bvh_kernel
+    dev = scene.device
+    mats = {k: v.clone().requires_grad_(True)
+            for k, v in scene.materials.items() if v.is_floating_point()}
+    c2w_t = cam.c2w_t.clone().requires_grad_(True)
+    n = 32 * 32
+    pix = torch.arange(n, device=dev)
+    raster = torch.stack([(pix % 32).float() + _randfloat(pix, 0x51633E2D),
+                          (pix // 32).float() + _randfloat(pix, 0x68BC21EB)],
+                         -1)
+    o, d = dataclasses.replace(cam, c2w_t=c2w_t).generate_ray(
+        raster, torch.full_like(raster, 0.5))
+    lam = wavelength.sample(_randfloat(pix, 0x02E5BE93))
+    sc = dataclasses.replace(scene, materials={**scene.materials, **mats})
+    before = dict(mod.LAUNCHES)
+    r, _, _, prims = path_trace.integrate(sc, o, d, lam, ray_key=_hash_u32(pix),
+                                          fixed_depth=4, trace_prims=True,
+                                          checkpoint=checkpoint)
+    loss = (weight[:, None] * r * r).sum()
+    fwd = {k: mod.LAUNCHES[k] - before[k] for k in ("closest", "any")}
+    loss.backward()
+    bwd = {k: mod.LAUNCHES[k] - before[k] - fwd[k] for k in fwd}
+    grads = {k: v.grad for k, v in mats.items()}
+    grads["c2w_t"] = c2w_t.grad
+    return loss.detach(), grads, prims, fwd, bwd
+
+
+@pytest.mark.parametrize("accel", ["bvh", "kdtree"])
+def test_fwd_bwd_through_kernel_matches_plain(card, accel):
+    """A fwd+bwd through K2 (K3) equals the same fwd+bwd routed to the
+    plain versions, on lanes whose prims agree (the rest weighted out and
+    held under 1%): gradients within rtol 1e-4 plus 1e-5 of their largest
+    entry (the card's scatter-adds sum in any order).  The kernels launch
+    once per bounce in the forward and never in the backward, with the
+    checkpoint on and off."""
+    from lumo_tpu_torch.camera import build_camera
+    mod = kd_kernel if accel == "kdtree" else bvh_kernel
+    scene = blob_box("lumo_tpu_torch", 2).build(accel=accel, device=card)
+    cam = build_camera(resolution=(32, 32), device=card)
+    ones = torch.ones(32 * 32, device=card)
+    _, _, pr_k, fwd, bwd = _grad_render(scene, cam, ones)
+    assert fwd == {"closest": 4, "any": 4} and bwd == {"closest": 0, "any": 0}
+    with mock.patch.object(mod, "closest_hit", mod.closest_hit_plain), \
+            mock.patch.object(mod, "any_hit", mod.any_hit_plain):
+        _, _, pr_p, _, _ = _grad_render(scene, cam, ones)
+    same = (pr_k == pr_p).all(dim=0)
+    assert int((~same).sum()) <= same.numel() // 100
+    w = same.float()
+    loss_k, g_k, _, _, bwd_k = _grad_render(scene, cam, w)
+    _, g_off, _, _, bwd_off = _grad_render(scene, cam, w, checkpoint=False)
+    assert bwd_k == bwd_off == {"closest": 0, "any": 0}
+    with mock.patch.object(mod, "closest_hit", mod.closest_hit_plain), \
+            mock.patch.object(mod, "any_hit", mod.any_hit_plain):
+        loss_p, g_p, _, _, _ = _grad_render(scene, cam, w)
+    assert torch.isfinite(loss_k) and float(loss_k) > 0.0
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0.0)
+    for k, gk in g_k.items():
+        if gk is None:
+            assert g_p[k] is None and g_off[k] is None, k
+            continue
+        assert bool(torch.isfinite(gk).all()), k
+        scale = float(gk.abs().max())
+        for other in (g_p[k], g_off[k]):
+            torch.testing.assert_close(gk, other, rtol=1e-4,
+                                       atol=1e-5 * max(scale, 1e-30))
+
+
+def test_stream_on_the_card_matches_batch(card):
+    """``integrate_stream`` through K2 against batch ``integrate`` per
+    sample: depth equal and radiance within rtol 1e-5, atol 1e-7 on all but
+    under 1% of the samples, every sample folded once."""
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.color import wavelength
+    from lumo_tpu_torch.integrators import path_trace
+    from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
+    scene = blob_box("lumo_tpu_torch", 2).build(device=card)
+    cam = build_camera(resolution=(32, 32), device=card)
+    n_pix, spp = 32 * 32, 8
+    n = n_pix * spp
+
+    def gen(idx):
+        p, s = idx % n_pix, idx // n_pix
+        raster = torch.stack([(p % 32).float() + _randfloat(p, s ^ 0x51633E2D),
+                              (p // 32).float() + _randfloat(p, s ^ 0x68BC21EB)],
+                             -1)
+        o, d = cam.generate_ray(raster, torch.full_like(raster, 0.5))
+        return {"o": o, "d": d,
+                "lam": wavelength.sample(_randfloat(p, s ^ 0x02E5BE93)),
+                "rng": _hash_u32(p ^ _hash_u32(s ^ 0x9E3779B9)), "samp": idx}
+
+    def fold(acc, term, st):
+        rad, dep, cnt = acc
+        return (rad.index_add(0, st["samp"],
+                              torch.where(term[:, None], st["radiance"], 0.0)),
+                dep.index_add(0, st["samp"], torch.where(term, st["depth"], 0)),
+                cnt.index_add(0, st["samp"], term.int()))
+
+    before = bvh_kernel.LAUNCHES["closest"]
+    acc0 = (torch.zeros((n, 4), device=card),
+            torch.zeros(n, dtype=torch.int32, device=card),
+            torch.zeros(n, dtype=torch.int32, device=card))
+    rad, dep, cnt = path_trace.integrate_stream(scene, gen, fold, acc0, 2048, n)
+    assert bvh_kernel.LAUNCHES["closest"] > before
+    assert bool((cnt == 1).all())
+    smp = gen(torch.arange(n, device=card))
+    r_b, _, dep_b = path_trace.integrate(scene, smp["o"], smp["d"], smp["lam"],
+                                         ray_key=smp["rng"])
+    close = (torch.isclose(rad, r_b, rtol=1e-5, atol=1e-7).all(dim=1)
+             & (dep == dep_b))
+    assert int((~close).sum()) <= n // 100
+    assert float(r_b.sum()) > 0.0

@@ -8,7 +8,8 @@ with the fixed and the adaptive Russian-roulette threshold, on a kd-tree
 scene and on a dense scene, agree with the JAX ``Renderer`` on one device:
 at least 99% of the pixels within rtol 1e-3 (atol 1e-6) and the image mean
 within 1e-3; the rest are paths whose topology flips by an ulp.  The modes
-that are not ported raise with their ROADMAP item."""
+that are not ported raise with their ROADMAP item (stream mode is held
+against batch mode in ``test_torch_stream.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,7 +191,7 @@ def test_renderer_options_and_progress(scenes, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda r: r.stream(), 4), (lambda r: r.devices(2), 11),
+    (lambda r: r.devices(2), 11),
     (lambda r: r.integrator("direct"), 8), (lambda r: r.integrator("bdpt"), 8),
     (lambda r: r.bdpt_depth(8), 8)])
 def test_not_ported_modes_raise(scenes, call, item):
