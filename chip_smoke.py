@@ -1201,6 +1201,306 @@ def phase_render_kd_stream(scene, camera):
     return per_frame[0]
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the example programs' scenes (materials, textures, shapes, media)
+
+MAT_RES = 512          # the examples' resolution
+MAT_SPP = 4            # cut from the examples' 512 spp for the script's time
+MAT_FRAMES = 2         # timed frames per scene (3 push the script past 600 s)
+MAT_PARITY_RES = 128
+MAT_SCENES = (("dragon", "bvh"), ("dragon-kd", "kdtree"), ("dof", "bvh"),
+              ("nefertiti", "bvh"), ("medium", "bvh"), ("circle", "bvh"))
+
+
+def example_scene(name, dev, accel):
+    """The scene of ``examples/<name>.py`` built with the port by the
+    program's own calls (the mesh programs' stand-in blobs): (scene,
+    camera(res) giving its camera at res^2, renderer illuminant or
+    None)."""
+    import math
+    from lumo_tpu_torch import camera as cam_mod
+    from lumo_tpu_torch.color import uplift
+    from lumo_tpu_torch.scene import shapes
+    from lumo_tpu_torch.scene.cornell import cornell_box, empty_box
+    from lumo_tpu_torch.scene.instance import Mesh
+    from lumo_tpu_torch.scene.materials import Material
+    from lumo_tpu_torch.scene.scene import SceneBuilder
+    PI = math.pi
+
+    def blob(subdiv, seed, amp):
+        v, f, vn = shapes.blob(subdiv=subdiv, seed=seed, amp=amp)
+        return Mesh(v, f, normals=vn)
+
+    cam, fn, illuminant = {}, "build_camera", None
+    if name == "dragon":
+        sb = empty_box(uplift.from_srgb8(242, 242, 242).reshape(4),
+                       Material.diffuse(uplift.from_srgb8(255, 0, 0)
+                                        .reshape(4)),
+                       Material.diffuse(uplift.from_srgb8(0, 255, 0)
+                                        .reshape(4)))
+        (blob(5, 13, 0.25).to_unit_size().to_origin()
+         .rotate_y(5.0 * PI / 8.0).scale_uniform(1.3).set_y(-0.799)
+         .translate(0.0, 0.0, -1.4)
+         .add_to(sb, Material.transparent(
+             uplift.from_srgb8(255, 0, 255).reshape(4), 0.03, 1.5)))
+    elif name == "dof":
+        sb = SceneBuilder()
+        checker = sb.textures.checkerboard((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                                           100.0)
+        gv, gf = shapes.grid_plane(n=1, size=10.0, y=0.0)
+        Mesh(gv, gf).translate(0.0, -1.0, 0.0).add_to(
+            sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=checker))
+        lv, lf = shapes.grid_plane(n=1, size=3.0, y=0.0)
+        Mesh(lv, lf).rotate_z(PI).translate(0.0, 8.0, -1.5).add_to(
+            sb, Material.light(0.25 * np.ones(4), two_sided=True))
+        teapot = blob(4, 5, 0.18).to_unit_size()
+        for i in range(3):
+            marble = sb.textures.marble((1.0, 245 / 255.0, 1.0))
+            (teapot.clone().to_origin().rotate_y(-PI / 4)
+             .translate(0.0, -0.75, -1.0 * i)
+             .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
+        o = np.array([-0.75, 0.25, 0.0])
+        t = np.array([0.0, -0.75, -1.0])
+        cam = dict(origin=tuple(o), towards=tuple(t), lens_radius=0.03,
+                   focal_length=float(np.linalg.norm(o - t)),
+                   kind=cam_mod.ORTHOGRAPHIC)
+    elif name == "nefertiti":
+        sb = SceneBuilder()
+        black = Material.diffuse((0.0, 0.0, 0.0))
+        sb.add_disk((0.0, -1.0, 0.0), (0.0, 1.0, 0.0), 10.0, black)
+        sb.add_disk((0.0, 1.0, 0.0), (0.0, -1.0, 0.0), 10.0, black)
+        sb.add_disk((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), 10.0, black)
+        sb.add_rectangle([-0.4, 0.99, -1.4], [-0.4, 0.99, -0.6],
+                         [0.4, 0.99, -0.6], Material.light(1.5 * np.ones(4)))
+        marble = sb.textures.marble((0.9, 0.85, 0.8))
+        (blob(5, 21, 0.18).to_unit_size().to_origin().rotate_x(-PI / 2)
+         .rotate_y(PI).set_y(-0.99).translate(0.0, 0.0, -1.0)
+         .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
+        cam = dict(origin=(0.1, 0.2, 0.3), towards=(0.0, 0.1, -1.0))
+    elif name == "medium":
+        sb = cornell_box()
+        sb.set_medium((0.5, 0.5, 0.5), (0.1, 0.1, 0.1), 0.9)
+        fn, illuminant = "cornell_camera", "CORNELL"
+    elif name == "circle":
+        def hsv_to_rgb(h):
+            def f(n):
+                k = (n + h / (PI / 3.0)) % 6.0
+                return 1.0 - np.clip(min(k, 4.0 - k), 0.0, 1.0)
+            return uplift.from_srgb8(int(f(5.0) * 255), int(f(3.0) * 255),
+                                     int(f(1.0) * 255)).reshape(4)
+        sb = SceneBuilder()
+        ground, r = -0.2, 0.2
+        sb.add_disk((0.0, ground, 0.0), (0.0, 1.0, 0.0), 100.0,
+                    Material.mirror())
+        sb.add_sphere((0.0, ground + r + 0.1, 0.0), r,
+                      Material.light(0.01 * np.ones(4), illuminant="D65"))
+        for i in range(8):
+            theta = (i / 8) * 2.0 * PI + PI / 8
+            sb.add_sphere((math.cos(theta), ground + r, math.sin(theta)), r,
+                          Material.diffuse(hsv_to_rgb(theta - PI / 8)))
+        cam = dict(origin=(0.0, 1.0, 1.5), towards=(0.0, -0.5, 0.0),
+                   up=(0.0, 1.0, -1.0))
+    else:
+        raise ValueError(name)
+    camera = lambda res: getattr(cam_mod, fn)(resolution=(res, res),
+                                              device=dev, **cam)
+    return sb.build(device=dev, accel=accel), camera, illuminant
+
+
+def materials_frame(scene, camera, spp, illuminant, delta=None,
+                    square=False):
+    """One frame through ``Renderer(scene, camera).integrator("path")``:
+    (image (H, W, 3) numpy, 2 x sum of path depths, wall seconds of
+    ``render``, bounce iterations)."""
+    from lumo_tpu_torch import film, renderer
+    depths, bounces = [], [0]
+    real, real_bounce = (renderer.path_trace.integrate,
+                         renderer.path_trace.bounce)
+
+    def integrate(*args, **kwargs):
+        out = real(*args, **kwargs)
+        depths.append(out[2].sum())
+        return out
+
+    def bounce(*args, **kwargs):
+        bounces[0] += 1
+        return real_bounce(*args, **kwargs)
+
+    r = renderer.Renderer(scene, camera).integrator("path").samples(spp)
+    if illuminant:
+        r.illuminant(illuminant)
+    if delta is not None:
+        r.fixed_rr_delta(delta)
+    if square:
+        r.pixel_filter(film.PixelFilter.square())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(renderer.path_trace, "integrate", integrate), \
+            mock.patch.object(renderer.path_trace, "bounce", bounce), \
+            torch.profiler.record_function("render"):
+        img = r.render(verbose=False)    # ends with the image on the host
+    wall = time.perf_counter() - t0
+    return img, 2.0 * float(sum(depths)), wall, bounces[0]
+
+
+def _launch_counts():
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    return {"k2_closest": bvh_kernel.LAUNCHES["closest"],
+            "k2_any": bvh_kernel.LAUNCHES["any"],
+            "k3_closest": kd_kernel.LAUNCHES["closest"],
+            "k3_any": kd_kernel.LAUNCHES["any"]}
+
+
+def _reset_launches():
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    for table in (bvh_kernel.LAUNCHES, kd_kernel.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def _plain_routed(accel):
+    """Context routing the scene's traversal queries to the plain
+    versions."""
+    import contextlib
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    mod = kd_kernel if accel == "kdtree" else bvh_kernel
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(mod, "closest_hit",
+                                          mod.closest_hit_plain))
+    stack.enter_context(mock.patch.object(mod, "any_hit", mod.any_hit_plain))
+    return stack
+
+
+def _image_parity(img_a, img_b, rtol, atol):
+    close = np.isclose(img_a, img_b, rtol=rtol, atol=atol).all(axis=-1)
+    err = np.abs(img_a - img_b)[close]
+    return int((~close).sum()), float(err.max()) if err.size else 0.0
+
+
+def idle_share(phase, frame):
+    """The device's idle share over one more frame: the union of the
+    device intervals that ``torch.profiler`` traces (device activity
+    only, read from the raw Kineto events: building ``prof.events()``
+    for a frame of ~200,000 events takes half a minute) over the frame's
+    wall.  ``frame()`` renders it, ending synchronised, and returns its
+    wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = frame()
+    t0 = time.perf_counter()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA"))
+    if not spans:
+        log(phase, device_events=0, device_time="not measured")
+        return
+    busy, end = 0, spans[0][0]
+    for a, b in spans:                  # union of the device intervals
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    log(phase, wall_ms=wall * 1e3, device_events=len(spans),
+        device_busy_ms=busy / 1e6, idle_share=1.0 - busy / 1e9 / wall,
+        read_s=round(time.perf_counter() - t0, 2))
+
+
+def phase_materials(dev):
+    """Slice 5's paths: the scenes of ``examples/{dragon,dof,nefertiti,
+    medium,circle}.py`` built with the port and rendered through
+    ``Renderer(...).integrator("path")`` at the examples' 512^2 and 4 spp
+    (cut from their 512 spp): per scene the build seconds, the primitive
+    counts, rays/s (median, fastest and slowest of MAT_FRAMES frames; the
+    earlier phases have warmed the card), bounces, and the K2/K3 launches
+    per frame (reset just before each frame, read just after); the idle
+    share of one profiled frame of dragon and dof.  Then at 128^2, 1 spp,
+    fixed Russian roulette threshold and the square filter (a pixel is
+    one sample):
+    dragon's and dof's kernel-routed image against the plain-routed one
+    (rtol 1e-5, atol 1e-7) and dragon's K3 image against its K2 image
+    (rtol 1e-5, atol 1e-6), pixels beyond counted as flips (at most
+    1%)."""
+    t_phase = time.perf_counter()
+    scenes = {}
+    kept = ("dragon", "dragon-kd", "dof")
+    for name, accel in MAT_SCENES:
+        t0 = time.perf_counter()
+        scene, make_camera, illum = example_scene(name.replace("-kd", ""),
+                                                  dev, accel)
+        torch.cuda.synchronize()
+        camera = make_camera(MAT_RES)
+        build_s = time.perf_counter() - t0
+        walls, rays, per_frame, bounces = [], [], [], []
+        for _ in range(MAT_FRAMES):
+            _reset_launches()
+            img, r, wall, nb = materials_frame(scene, camera, MAT_SPP, illum)
+            per_frame.append(_launch_counts())
+            if img.shape != (MAT_RES, MAT_RES, 3) or not np.isfinite(
+                    img).all():
+                raise AssertionError(f"{name}: wrong shape or non-finite")
+            walls.append(wall)
+            rays.append(r)
+            bounces.append(nb)
+        launches = per_frame[0]
+        k2 = launches["k2_closest"] + launches["k2_any"]
+        k3 = launches["k3_closest"] + launches["k3_any"]
+        tree = {"bvh": scene.bvh, "kdtree": scene.kdtree}[accel]
+        want = {"bvh": (tree is not None, False),
+                "kdtree": (False, True)}[accel]
+        if (k2 > 0, k3 > 0) != want or any(f != launches for f in per_frame):
+            raise AssertionError(f"{name}: launches per frame {per_frame}")
+        rate = sorted(r / w for r, w in zip(rays, walls))
+        median = float(np.median(rate))
+        fields = dict(
+            scene=name, accel=accel if tree is not None else "dense",
+            build_s=round(build_s, 3), tris=scene.n_tris,
+            spheres=scene.n_spheres, analytics=scene.n_analytic,
+            medium=scene.medium is not None, res=f"{MAT_RES}x{MAT_RES}",
+            spp=MAT_SPP, frames=MAT_FRAMES,
+            wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
+            rays_per_s_median=median, rays_per_s_min=rate[0],
+            rays_per_s_max=rate[-1], bounces=bounces[-1],
+            launches=json.dumps(launches).replace(" ", ""),
+            image_mean=float(img.mean()), finite=True)
+        log("materials", **fields)
+        if name in ("dragon", "dof"):
+            idle_share(f"materials-profile-{name}",
+                       lambda: materials_frame(scene, camera, MAT_SPP,
+                                               illum)[2])
+        if name in kept:
+            scenes[name] = (scene, accel, illum, make_camera)
+        del scene
+
+    # kernel-routed against plain-routed, and K3 against K2
+    images = {}
+    for name in kept:
+        scene, accel, illum, make_camera = scenes[name]
+        cam = make_camera(MAT_PARITY_RES)
+        images[name] = materials_frame(scene, cam, 1, illum, delta=1.0,
+                                       square=True)[0]
+        if name == "dragon-kd":
+            continue
+        t0 = time.perf_counter()
+        with _plain_routed(accel):
+            img_p = materials_frame(scene, cam, 1, illum, delta=1.0,
+                                    square=True)[0]
+        flips, err = _image_parity(images[name], img_p, 1e-5, 1e-7)
+        log("materials-parity", scene=name, res=f"{MAT_PARITY_RES}x"
+            f"{MAT_PARITY_RES}", spp=1, pixels=img_p.shape[0] ** 2,
+            flips=flips, image_max_abs_err=err, rtol=1e-5, atol=1e-7,
+            plain_render_s=round(time.perf_counter() - t0, 2))
+        if flips > img_p.shape[0] ** 2 // 100:
+            raise AssertionError(f"{name}: kernel and plain renders disagree")
+    flips, err = _image_parity(images["dragon-kd"], images["dragon"], 1e-5,
+                               1e-6)
+    n_pix = MAT_PARITY_RES ** 2
+    log("materials-parity", scene="dragon-kd-vs-dragon", spp=1,
+        res=f"{MAT_PARITY_RES}x{MAT_PARITY_RES}", pixels=n_pix, flips=flips,
+        image_max_abs_err=err, rtol=1e-5, atol=1e-6)
+    if flips > n_pix // 100:
+        raise AssertionError("dragon: K3 and K2 renders disagree")
+    log("materials", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1270,6 +1570,8 @@ def main():
     phase_parity_kd(scene_kd, dev)
     phase_grad_kd(scene_kd, scene, parity)
     phase_render_kd_stream(scene_kd, camera)
+    del scene_kd
+    phase_materials(dev)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

@@ -1,11 +1,13 @@
-"""GGX microfacet distribution: NDF, Smith shadow-masking, VNDF sampling,
-exact dielectric and complex-conductor Fresnel, Disney diffuse.
+"""Microfacet distributions (GGX and Beckmann): NDF, Smith
+shadow-masking, normal sampling, exact dielectric and complex-conductor
+Fresnel, Disney diffuse.
 
 Counterpart of ``lumo_tpu/bsdf/microfacet.py`` (reference
-``microfacet.rs``) for the GGX distribution; the Beckmann variant comes
-with a later slice (``SceneBuilder.build`` raises on a Beckmann row).
-All functions map (N, ...) wavefronts in shading space (z-up); complex
-arithmetic is explicit real/imaginary pairs.
+``microfacet.rs``).  All functions map (N, ...) wavefronts in shading
+space (z-up); complex arithmetic is explicit real/imaginary pairs.  The
+distribution dispatchers take ``beck``: a per-lane bool tensor (both
+families evaluated, selected by ``torch.where``) or a Python bool when
+the material table holds one family only.
 """
 from __future__ import annotations
 
@@ -102,6 +104,112 @@ def vndf_pdf(wh, wo, alpha):
            / torch.clamp(torch.abs(onb.cos_theta(wo)), min=_TINY))
     return torch.clamp(pdf, min=0.0)
 
+
+# ---------------------------------------------------------------------------
+# Beckmann (reference ``microfacet.rs:48-49,198-211,341-357,434-445``)
+
+def d_beckmann(wh, alpha):
+    """Anisotropic Beckmann NDF (PBR 8.4.2):
+    exp(-tan^2 (cos^2 phi/ax^2 + sin^2 phi/ay^2)) / (pi ax ay cos^4)."""
+    x, y, z = wh[..., 0], wh[..., 1], wh[..., 2]
+    c2 = z * z
+    ok = c2 > 1e-12
+    c2s = torch.where(ok, c2, 1.0)
+    u = (x / alpha[..., 0]) ** 2 + (y / alpha[..., 1]) ** 2
+    big = u > 80.0 * c2s           # exp(-80) is 0 in float32 anyway
+    e = torch.where(big, 80.0, u / torch.where(big, 1.0, c2s))
+    inv_a = 1.0 / (PI * alpha[..., 0] * alpha[..., 1])
+    inv_c = 1.0 / c2s
+    d = torch.exp(-e) * inv_a * inv_c * inv_c
+    return torch.where(ok, d, 0.0)
+
+
+def _lambda_beckmann(w, alpha):
+    """Smith Lambda for Beckmann, PBR's rational approximation with
+    a = 1/(alpha_eff tan), as ``lumo_tpu`` computes it (tan, where the
+    reference's ``microfacet.rs:347`` has tan^2)."""
+    x, y, z = w[..., 0], w[..., 1], w[..., 2]
+    c2 = z * z
+    okz = c2 > 1e-12
+    c2s = torch.where(okz, c2, 1.0)
+    u_at = (alpha[..., 0] * x) ** 2 + (alpha[..., 1] * y) ** 2
+    big_at = u_at > 1e12 * c2s
+    at = safe_sqrt(torch.where(big_at, 1e12,
+                               u_at / torch.where(big_at, 1.0, c2s)))
+    abs_tan = safe_sqrt(torch.clamp((x * x + y * y) / c2s, max=1e12))
+    a = 1.0 / torch.clamp(at, min=_TINY)
+    # the masked a >= 1.6 branch must not evaluate the rational at a ~ 1e30
+    big = a >= 1.6
+    a_s = torch.where(big, 1.0, a)
+    lam = torch.where(big, 0.0,
+                      (1.0 - 1.259 * a_s + 0.396 * a_s * a_s)
+                      / torch.clamp(3.535 * a_s + 2.181 * a_s * a_s,
+                                    min=_TINY))
+    return torch.where(okz & (abs_tan > 0.0), lam, 0.0)
+
+
+def sample_beckmann(alpha, u):
+    """A Beckmann-distributed normal (full-NDF sampling, anisotropic per
+    PBR 8.4.3); its pdf is D(wh) cos(theta_h)."""
+    phi_iso = 2.0 * PI * u[..., 1]
+    phi = torch.atan(alpha[..., 1] / alpha[..., 0]
+                     * torch.tan(phi_iso + 0.5 * PI))
+    phi = phi + torch.where(u[..., 1] > 0.5, PI, 0.0)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    log_u = torch.log(torch.clamp(1.0 - u[..., 0], min=1e-30))
+    tan2 = -log_u / torch.clamp((cp / alpha[..., 0]) ** 2
+                                + (sp / alpha[..., 1]) ** 2, min=_TINY)
+    cos_t = 1.0 / safe_sqrt(1.0 + tan2)
+    sin_t = safe_sqrt(1.0 - cos_t * cos_t)
+    return torch.stack([sin_t * cp, sin_t * sp, cos_t], dim=-1)
+
+
+def beckmann_pdf(wh, alpha):
+    """PDF of :func:`sample_beckmann` (``microfacet.rs:367-370``)."""
+    return torch.clamp(d_beckmann(wh, alpha) * onb.cos_theta(wh), min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# distribution dispatch over {GGX, Beckmann} (``microfacet.rs:140``)
+
+def d_dist(wh, alpha, beck):
+    if isinstance(beck, bool):
+        return d_beckmann(wh, alpha) if beck else d_ggx(wh, alpha)
+    return torch.where(beck, d_beckmann(wh, alpha), d_ggx(wh, alpha))
+
+
+def g_smith_dist(wo, wi, wh, alpha, beck, eps=1e-7):
+    if isinstance(beck, bool):
+        lam_f = _lambda_beckmann if beck else _lambda_ggx
+        lam_o, lam_i = lam_f(wo, alpha), lam_f(wi, alpha)
+    else:
+        lam_o = torch.where(beck, _lambda_beckmann(wo, alpha),
+                            _lambda_ggx(wo, alpha))
+        lam_i = torch.where(beck, _lambda_beckmann(wi, alpha),
+                            _lambda_ggx(wi, alpha))
+    g = 1.0 / (1.0 + lam_o + lam_i)
+    return torch.where(_chi_pass(wo, wh, eps), g, 0.0)
+
+
+def normal_pdf(wh, wo, alpha, beck):
+    """PDF of :func:`sample_normal_dist` over half vectors: the VNDF for
+    GGX, D cos(theta) for Beckmann (``microfacet.rs:361-380``)."""
+    if isinstance(beck, bool):
+        return beckmann_pdf(wh, alpha) if beck else vndf_pdf(wh, wo, alpha)
+    return torch.where(beck, beckmann_pdf(wh, alpha),
+                       vndf_pdf(wh, wo, alpha))
+
+
+def sample_normal_dist(wo, alpha, u, beck):
+    if isinstance(beck, bool):
+        return sample_beckmann(alpha, u) if beck else sample_vndf(wo, alpha,
+                                                                  u)
+    return torch.where(beck[..., None], sample_beckmann(alpha, u),
+                       sample_vndf(wo, alpha, u))
+
+
+# ---------------------------------------------------------------------------
+# Fresnel
 
 def fr_real(cos_o_signed, eta):
     """Exact real dielectric Fresnel with TIR (reference

@@ -1,13 +1,15 @@
 """Batched ray-triangle intersection (the dense reference path).
 
-Counterpart of ``lumo_tpu/geometry/intersect.py`` (triangles only; the
-sphere and analytic kinds come with later slices).  The watertight Woop
-et al. 2013 permute+shear test with its PBR-style gamma error bound
-(reference ``triangle.rs:63-187``) is the arithmetic the CUDA traversal
-kernel mirrors operation for operation, so this module is also the plain
-version that kernel is held against.
+Counterpart of ``lumo_tpu/geometry/intersect.py``: triangles and
+spheres (the analytic kinds are ``geometry/analytic.py``).  The
+watertight Woop et al. 2013 permute+shear triangle test with its
+PBR-style gamma error bound (reference ``triangle.rs:63-187``) is the
+arithmetic the CUDA traversal kernel mirrors operation for operation, so
+this module is also the plain version that kernel is held against.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,6 +17,7 @@ from lumo_tpu_torch.config import INF, gamma_bound
 from lumo_tpu_torch.geometry.onb import cross, dot, normalize
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
+_F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
 def _permute_axes(v, kz):
@@ -125,6 +128,52 @@ def triangle_detail(o, d, a, b, c, na, nb, nc, uva, uvb, uvc):
     err = gamma_bound(7) * (torch.abs(al * a) + torch.abs(be * b)
                             + torch.abs(ga * c))
     return {"p": p, "ng": ng, "ns": ns, "uv": uv, "err": err}
+
+
+def _safe_root(disc):
+    """sqrt(max(disc, 0)) whose gradient is 0, not NaN, where disc <= 0:
+    a miss lane's zero cotangent times sqrt'(0) = INF would be NaN (the
+    JAX package's clamp-then-sqrt gives NaN camera gradients there)."""
+    pos = disc > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+
+
+def sphere_t(o, d, center, radius, t_min, t_max):
+    """Robust sphere test, t only: o, d (N, 3); center (N|1, S, 3);
+    radius (N|1, S); t_min, t_max scalars or (N, 1).  Returns t (N, S),
+    INF on a miss.  The stable quadratic with a conservative epsilon on t
+    stands for the reference's EFloat bounds; ``sphere_detail``'s
+    reprojection recovers the precision that matters."""
+    oc = o[..., None, :] - center                       # (N, S, 3)
+    half_b = dot(oc, d[..., None, :])                  # d is unit: A = 1
+    cc = dot(oc, oc) - radius * radius
+    disc = half_b * half_b - cc
+    ok = disc >= 0.0
+    root = _safe_root(disc)
+    q = -(half_b + torch.sign(half_b) * root)
+    t0 = torch.where(torch.abs(q) > 0, cc / torch.where(q == 0, 1.0, q), INF)
+    lo = torch.minimum(t0, q)
+    hi = torch.maximum(t0, q)
+    eps = 32.0 * _F32_EPS * torch.clamp(torch.abs(hi), min=1.0)
+    lo_ok = ok & (lo > t_min + eps) & (lo < t_max)
+    hi_ok = ok & (hi > t_min + eps) & (hi < t_max)
+    return torch.where(lo_ok, lo, torch.where(hi_ok, hi, INF))
+
+
+def sphere_detail(o, d, t, center, radius):
+    """Shading data of the selected sphere hit per ray (all (N, ...)),
+    the hit point reprojected onto the surface (reference
+    ``sphere.rs:63-64``)."""
+    rel = o + t[..., None] * d - center
+    rel = rel * (radius[..., None] / torch.clamp(
+        torch.linalg.vector_norm(rel, dim=-1, keepdim=True), min=_F32_TINY))
+    p = center + rel
+    ng = rel / radius[..., None]
+    theta = torch.arccos(torch.clamp(-ng[..., 1], -1.0, 1.0))
+    phi = torch.atan2(-ng[..., 2], ng[..., 0]) + math.pi
+    uv = torch.stack([phi / (2.0 * math.pi), theta / math.pi], dim=-1)
+    err = gamma_bound(5) * torch.abs(p)
+    return {"p": p, "ng": ng, "ns": ng, "uv": uv, "err": err}
 
 
 def offset_ray_origin(p, err, ng, wi):

@@ -24,7 +24,7 @@ _SHRINK = 1.0 - 8.0 * float(torch.finfo(torch.float32).eps)
 S_LIGHT = 0x2545F491
 S_SQ0 = 0x9E3779B9
 S_SQ1 = 0x85EBCA6B
-S_OCC = 0xD3A2646C
+S_OCC = 0xD3A2646C   # salts the medium's free flight on the shadow ray
 
 
 def _fold(rng, i):
@@ -68,7 +68,7 @@ def nee_light_branch(scene, mp, wo, hit, lam, rng):
     # (``lumo_tpu/integrators/common.py:88-90``)
     t_max = ((torch.where(lh["valid"] & hit["valid"], lh["t"], 0.0)
               - epsilon()) * _SHRINK).detach()
-    occ = trace.occluded(scene, o, wi, t_max)
+    occ = trace.occluded(scene, o, wi, t_max, rng=rng, salt=S_OCC)
     visible = lh["valid"] & ~occ
     p_lig = trace.sample_towards_pdf(scene, light, o, wi, lh["p"], lh["ng"])
     f_val, p_sct = bsdf.f_pdf(mp, wo, wi, hit["ng"], hit["ns"],

@@ -48,6 +48,7 @@ _S_LOBE = 0x632BE59B
 _S_SQ0 = 0x85297A4D
 _S_SQ1 = 0xD6E8FEB8
 _S_RR = 0xA0761D64
+_S_MED = 0xE7037ED1
 
 
 def ray_keys(generator: torch.Generator, n: int, device=None):
@@ -61,17 +62,22 @@ def ray_keys(generator: torch.Generator, n: int, device=None):
 def bounce(scene, s, delta):
     """One wavefront bounce of the path state ``s`` (a dict)."""
     rng = _hash_u32((s["rng"] + 0x9E3779B9) & MASK32)
-    hit = trace.intersect(scene, s["o"], s["d"], alive=s["alive"])
+    hit = trace.intersect(scene, s["o"], s["d"], rng=rng, salt=_S_MED,
+                          alive=s["alive"])
     alive = s["alive"] & hit["valid"]
     wo = -s["d"]
     lam = s["lam"]
+    # per-segment medium transmittance (reference ``path_trace.rs:20``)
     tr_seg = trace.transmittance(scene, lam, hit["t"])
     gathered0 = s["gathered"] * torch.where(alive[..., None], tr_seg, 1.0)
 
+    # dispersion terminates hero wavelengths before the one gather that
+    # serves sampling, NEE and evaluation
     lam2 = wavelength.terminate(lam, bsdf.dispersive_mask(scene.materials,
                                                           hit["mat"]))
     mp = bsdf.gather_params(scene.materials, hit["mat"], lam2, hit["uv"],
-                            kinds=scene.kinds_present)
+                            scene.textures, scene.tex_kinds, t=hit["t"],
+                            kinds=scene.kinds_present, beck=scene.beckmann)
 
     u_lobe = _randfloat(rng, _S_LOBE)
     u_sq = torch.stack([_randfloat(rng, _S_SQ0), _randfloat(rng, _S_SQ1)],
@@ -101,6 +107,10 @@ def bounce(scene, s, delta):
                               hit["backface"], lam2, RADIANCE)
     alive = alive & (p_sct > 1e-12) & torch.isfinite(p_sct)
     p_safe = torch.where(alive, p_sct, 1.0)
+    # a medium is sampled by its phase function exactly, so the pdf
+    # cancels (reference ``path_trace.rs:52-58``)
+    f_val = torch.where(hit["is_medium"][..., None],
+                        f_val * p_safe[..., None], f_val)
     f_val = torch.where(alive[..., None], f_val, 0.0)
     cosine = bsdf.shading_cosine(mp, wi, hit["ns"])
     gathered = gathered0 * f_val * (cosine / p_safe)[..., None]

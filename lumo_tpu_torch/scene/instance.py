@@ -3,9 +3,10 @@
 Counterpart of the host-side half of ``lumo_tpu/scene/instance.py``: the
 transform is baked into the triangle vertices (exact - a triangle maps to
 a triangle) and the normal matrix into the shading normals when the mesh
-is added to a scene.  Only the transforms of
-``bench.py:207-210`` are ported: ``translate`` and the kd-tree helpers
-``to_unit_size``, ``to_origin`` and ``set_y`` (``kdtree.rs:93-99``).
+is added to a scene.  The fluent API mirrors ``Instanceable``
+(``instance.rs:202-299``) and the kd-tree helpers ``to_unit_size``,
+``to_origin``, ``set_x/y/z`` (``kdtree.rs:93-99``).  Runtime instancing
+(``add_instances_to``) raises with its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,11 +22,37 @@ def translation(x, y, z):
     return m
 
 
+def scale(x, y, z):
+    assert x * y * z != 0.0
+    return np.diag([x, y, z, 1.0])
+
+
+def _rot(axis, r):
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4)
+    i, j = [(1, 2), (2, 0), (0, 1)][axis]
+    m[i, i] = c
+    m[j, j] = c
+    m[i, j] = -s
+    m[j, i] = s
+    return m
+
+
+def rotate_x(r):
+    return _rot(0, r)
+
+
+def rotate_y(r):
+    return _rot(1, r)
+
+
+def rotate_z(r):
+    return _rot(2, r)
+
+
 class Mesh:
-    """Host mesh + accumulated transform, with the fluent transforms
-    ``bench.py::bench_bvh_scene`` uses; ``add_to`` bakes it into a
-    SceneBuilder.  Rotations, ``clone`` and runtime instancing
-    (``add_instances_to``) come with the instancing slice."""
+    """Host mesh + accumulated transform, fluent like the reference's
+    ``Instance``; ``add_to`` bakes it into a SceneBuilder."""
 
     def __init__(self, vertices, faces, normals=None, normal_idx=None,
                  uvs=None, uv_idx=None):
@@ -37,14 +64,36 @@ class Mesh:
         self.uv_idx = None if uv_idx is None else np.asarray(uv_idx, np.int64)
         self.m = np.eye(4)
 
-    def _apply(self, t):
-        """Compose ``t`` after the current transform (reference
-        semantics)."""
+    def clone(self) -> "Mesh":
+        """Shared geometry, a private transform (reference
+        ``Instance::clone``, ``instance.rs:5-15``)."""
+        m = Mesh.__new__(Mesh)
+        m.__dict__.update(self.__dict__)
+        m.m = self.m.copy()
+        return m
+
+    # fluent transforms, each applied AFTER the current one
+    def apply(self, t):
         self.m = np.asarray(t, np.float64) @ self.m
         return self
 
     def translate(self, x, y, z):
-        return self._apply(translation(x, y, z))
+        return self.apply(translation(x, y, z))
+
+    def scale(self, x, y, z):
+        return self.apply(scale(x, y, z))
+
+    def scale_uniform(self, s):
+        return self.scale(s, s, s)
+
+    def rotate_x(self, r):
+        return self.apply(rotate_x(r))
+
+    def rotate_y(self, r):
+        return self.apply(rotate_y(r))
+
+    def rotate_z(self, r):
+        return self.apply(rotate_z(r))
 
     # ---- bounds-dependent helpers (reference ``kdtree.rs:93-99``) ----
     def _bounds(self):
@@ -53,17 +102,24 @@ class Mesh:
 
     def to_unit_size(self):
         lo, hi = self._bounds()
-        s = 1.0 / max(hi - lo)
-        return self._apply(np.diag([s, s, s, 1.0]))
+        return self.scale_uniform(1.0 / max(hi - lo))
 
     def to_origin(self):
         lo, hi = self._bounds()
         c = 0.5 * (lo + hi)
         return self.translate(*(-c))
 
+    def set_x(self, x):
+        lo, hi = self._bounds()
+        return self.translate(x - 0.5 * (lo[0] + hi[0]), 0, 0)
+
     def set_y(self, y):
         lo, hi = self._bounds()
         return self.translate(0, y - lo[1], 0)
+
+    def set_z(self, z):
+        lo, hi = self._bounds()
+        return self.translate(0, 0, z - 0.5 * (lo[2] + hi[2]))
 
     # ---- bake ----
     def add_to(self, builder: SceneBuilder, material: Material | int):
@@ -76,3 +132,20 @@ class Mesh:
             uv_idx=(self.uv_idx if self.uv_idx is not None
                     else (self.faces if self.uvs is not None else None)),
             transform=self.m)
+
+    def add_instances_to(self, builder: SceneBuilder, transforms, materials):
+        return builder.add_instanced_triangles()
+
+
+def sphere_instance(center, radius, t):
+    """A rigid + uniform-scale transform of a sphere -> (center',
+    radius'); raises ValueError on any other transform (the builder then
+    makes an ellipsoid)."""
+    m = np.asarray(t, np.float64)
+    a = m[:3, :3]
+    s2 = a.T @ a
+    sc = np.sqrt(np.trace(s2) / 3.0)
+    if not np.allclose(s2, np.eye(3) * sc * sc, rtol=1e-5, atol=1e-8):
+        raise ValueError("sphere instances must be rigid + uniform scale")
+    c = a @ np.asarray(center, np.float64) + m[:3, 3]
+    return c, float(radius * sc)

@@ -1,15 +1,21 @@
 """Scene building: host-side accumulation -> flat SoA tensors.
 
-Counterpart of ``lumo_tpu/scene/scene.py`` (reference ``scene.rs``) for
-triangle scenes.  Scenes of ``BVH_THRESHOLD`` triangles or more get a
+Counterpart of ``lumo_tpu/scene/scene.py`` (reference ``scene.rs``).
+Primitives are three families with global ids: triangles ``[0, T)``,
+spheres ``[T, T+S)`` and analytic shapes (plane, disk, cone, cylinder,
+ellipsoid) after them; a scene may hold a texture table, an environment
+light (an emissive sphere around it) and a homogeneous medium.  Scenes
+of ``BVH_THRESHOLD`` triangles or more get a
 binned-SAH BVH whose leaf order the triangle arrays are permuted into;
 dominant-area triangles (room walls) are split out of the BVH and kept at
 the tail ``[n_bvh_tris, n_tris)``, where ``trace`` tests them densely.
 With ``accel="kdtree"`` they get a Wald-Havran SAH kd-tree instead
 (reference ``Mesh = KdTree``): the triangle order is untouched, the walls
 stay inside the tree, and the tree is kept on the device only in the CUDA
-kernel's layout (``accel/kd_kernel.py``).  Lights get a Walker alias table
-(reference ``bvh.rs:104-191``) built on the host.
+kernel's layout (``accel/kd_kernel.py``).  Spheres and analytic shapes
+are few and always tested densely.  Lights (triangles, spheres, disks)
+get a Walker alias table (reference ``bvh.rs:104-191``) built on the
+host.
 
 The BVH is kept on the device only as repacked for the CUDA traversal
 kernel (``nodes``, ``tris``; see ``accel/bvh_kernel.py``): the builder's
@@ -27,14 +33,21 @@ import numpy as np
 import torch
 
 from lumo_tpu_torch.config import resolve_device
-from lumo_tpu_torch.scene.materials import (LIGHT, MF_DIELECTRIC, VOLUMETRIC,
-                                            Material, pack_materials)
+from lumo_tpu_torch.geometry import analytic
+from lumo_tpu_torch.scene.materials import LIGHT, Material, pack_materials
 
 BVH_THRESHOLD = 64  # brute-force below this many triangles
 
 TRI_KEYS = ("a", "b", "c", "na", "nb", "nc", "uva", "uvb", "uvc")
 BVH_KEYS = ("lo", "hi", "right", "first", "count", "axis")
 KD_KEYS = ("split", "axis", "right", "first", "count", "prims", "lo", "hi")
+# the sphere and analytic tables: row shape and host dtype of each column,
+# in the order of the builder's ``_spheres`` and ``_analytic`` records
+SPH_COLS = {"sph_center": ((3,), np.float64), "sph_radius": ((), np.float64),
+            "sph_mat": ((), np.int32)}
+ANA_COLS = {"ana_kind": ((), np.int32), "ana_rot": ((3, 3), np.float64),
+            "ana_trans": ((3,), np.float64), "ana_radius": ((), np.float64),
+            "ana_height": ((), np.float64), "ana_mat": ((), np.int32)}
 
 
 def _not_ported(what: str, item: int):
@@ -45,8 +58,9 @@ def _not_ported(what: str, item: int):
 
 @dataclasses.dataclass(frozen=True)
 class SceneData:
-    """Device scene.  Primitive ids are global triangle indices [0, T);
-    index tables are int64, float tables float32."""
+    """Device scene.  Primitive ids are global: [0, T) triangles, [T, T+S)
+    spheres, then the analytic shapes; index tables are int64, float
+    tables float32."""
     tri_a: torch.Tensor
     tri_b: torch.Tensor
     tri_c: torch.Tensor
@@ -57,20 +71,39 @@ class SceneData:
     tri_uvb: torch.Tensor
     tri_uvc: torch.Tensor
     tri_mat: torch.Tensor
+    sph_center: torch.Tensor   # (S, 3)
+    sph_radius: torch.Tensor   # (S,)
+    sph_mat: torch.Tensor      # (S,)
+    # analytic shapes (A, ...): kind tag, world->local rows, translation,
+    # radius, height (``geometry/analytic.py``)
+    ana_kind: torch.Tensor
+    ana_rot: torch.Tensor
+    ana_trans: torch.Tensor
+    ana_radius: torch.Tensor
+    ana_height: torch.Tensor
+    ana_mat: torch.Tensor
     light_prim: torch.Tensor   # (L,) prim id of each light
     light_pdf: torch.Tensor    # (L,) selection probability
     alias_p: torch.Tensor      # (L,) alias acceptance threshold
     alias_idx: torch.Tensor    # (L,) alias target
     prim_light: torch.Tensor   # (P,) light index per prim, -1 if none
     materials: dict            # name -> (M, ...) tensor
+    textures: Optional[dict]   # the texture table (``texture.py``)
+    medium: Optional[dict]     # sigma_t, sigma_s, g, t_scale, mat
     bvh: Optional[dict]        # "nodes", "tris" (kernel layout), "depth"
     kdtree: Optional[dict]     # "nodes", "refs", "tris", "root" (kernel layout), "depth"
     bounds: torch.Tensor       # (2, 3)
     n_tris: int
     n_bvh_tris: int            # [0, n_bvh_tris) are under the BVH
+    n_spheres: int
+    n_analytic: int
+    n_ana_lights: int          # disk lights
     n_lights: int
     n_shadow_rays: int
     kinds_present: frozenset   # material kinds in the table (host-side)
+    beckmann: bool             # the table has Beckmann rows
+    tex_kinds: tuple           # texture kinds in the texture table
+    n_normal_maps: int
 
     @property
     def device(self) -> torch.device:
@@ -83,8 +116,7 @@ class SceneData:
         mv = lambda v: v.to(device) if isinstance(v, torch.Tensor) else v
         repl = {f.name: mv(getattr(self, f.name))
                 for f in dataclasses.fields(self)}
-        repl["materials"] = {k: mv(v) for k, v in self.materials.items()}
-        for name in ("bvh", "kdtree"):
+        for name in ("materials", "textures", "medium", "bvh", "kdtree"):
             if getattr(self, name) is not None:
                 repl[name] = {k: mv(v) for k, v in getattr(self, name).items()}
         return SceneData(**repl)
@@ -99,25 +131,34 @@ def _empty_tri_chunk():
 
 
 class SceneBuilder:
-    """Accumulates triangles and materials on the host; ``build()`` packs
+    """Accumulates primitives and materials on the host; ``build()`` packs
     the device scene (reference ``Scene::{add, add_light, build}``,
     ``scene.rs:33-77``)."""
 
     def __init__(self):
+        from lumo_tpu_torch.texture import Textures
+        self.textures = Textures()
         self._tri_chunks = []  # list of (geom dict, mat_idx, is_light)
+        self._spheres = []     # list of (center, radius, mat_idx, is_light)
+        self._analytic = []    # (kind, rot, trans, r, h, mat, is_light)
         self._materials: list[Material] = []
+        self.environment: Optional[Material] = None
+        self.medium = None
 
     def material(self, mat: Material) -> int:
         self._materials.append(mat)
         return len(self._materials) - 1
+
+    def _mat_id(self, mat):
+        mid = mat if isinstance(mat, int) else self.material(mat)
+        return mid, self._materials[mid].kind == LIGHT
 
     def add_triangles(self, vertices, faces, mat: Material | int,
                       normals=None, vertex_normal_idx=None,
                       uvs=None, uv_idx=None, transform=None):
         """Add a triangle soup/mesh. vertices (V, 3); faces (F, 3) int.
         normals/uvs optionally indexed per face corner."""
-        mid = mat if isinstance(mat, int) else self.material(mat)
-        is_light = self._materials[mid].kind == LIGHT
+        mid, is_light = self._mat_id(mat)
         v = np.asarray(vertices, np.float64)
         if transform is not None:
             m = np.asarray(transform, np.float64)
@@ -178,27 +219,88 @@ class SceneBuilder:
         return self.add_triangles(corners, np.array(faces), mat,
                                   transform=transform)
 
-    def add_sphere(self, *args, **kwargs):
-        raise _not_ported("spheres", 7)
+    def add_sphere(self, center, radius, mat: Material | int,
+                   transform=None):
+        """Sphere; ``transform`` (4x4 affine) instances it as the
+        reference's ``Instance<Sphere>``: a rigid + uniform-scale transform
+        bakes into (center', radius'), any other makes an ellipsoid, an
+        analytic unit sphere under the affine frame
+        (``instance.rs:81-105``), which cannot be a light."""
+        if transform is not None:
+            from lumo_tpu_torch.scene.instance import sphere_instance
+            try:
+                center, radius = sphere_instance(center, radius, transform)
+            except ValueError:
+                L, trans = analytic.affine_frame(transform, center, radius)
+                return self._add_analytic(analytic.SPHERE, L, trans, 1.0, 0.0,
+                                          mat)
+        mid, is_light = self._mat_id(mat)
+        self._spheres.append((np.asarray(center, np.float64), float(radius),
+                              mid, is_light))
+        return mid
+
+    def _add_analytic(self, kind, rot, trans, radius, height, mat,
+                      light_ok=False):
+        mid, is_light = self._mat_id(mat)
+        if is_light and not light_ok:
+            raise ValueError("only disks can be analytic lights "
+                             "(reference: Disk is the only Sampleable "
+                             "analytic primitive, disk.rs:131-160)")
+        self._analytic.append((int(kind), np.asarray(rot, np.float64),
+                               np.asarray(trans, np.float64), float(radius),
+                               float(height), mid, is_light))
+        return mid
+
+    def add_plane(self, p, n, mat: Material | int):
+        """Infinite plane through p with normal n (reference
+        ``plane.rs:20-38``)."""
+        return self._add_analytic(analytic.PLANE,
+                                  analytic.frame_from_normal(n), p, 0.0, 0.0,
+                                  mat)
+
+    def add_disk(self, origin, normal, radius, mat: Material | int):
+        """Disk of ``radius`` at ``origin`` facing ``normal`` (reference
+        ``disk.rs:21-45``); disks may be lights (``disk.rs:131-160``)."""
+        assert radius > 0.0
+        return self._add_analytic(analytic.DISK,
+                                  analytic.frame_from_normal(normal), origin,
+                                  radius, 0.0, mat, light_ok=True)
+
+    def add_cone(self, height, radius, mat: Material | int, transform=None):
+        """Cone: base circle of ``radius`` at y = 0, apex at y = ``height``
+        (reference ``cone.rs:14-25``), under an optional rigid +
+        uniform-scale transform."""
+        assert height > 0.0 and radius > 0.0
+        rot, trans, s = analytic.frame_from_transform(transform)
+        return self._add_analytic(analytic.CONE, rot, trans, radius * s,
+                                  height * s, mat)
+
+    def add_cylinder(self, height, radius, mat: Material | int,
+                     transform=None):
+        """Cylinder: base at y = 0, top at y = ``height``, of ``radius``
+        (reference ``cylinder.rs:14-25``)."""
+        assert height > 0.0 and radius > 0.0
+        rot, trans, s = analytic.frame_from_transform(transform)
+        return self._add_analytic(analytic.CYLINDER, rot, trans, radius * s,
+                                  height * s, mat)
 
     def add_instanced_triangles(self, *args, **kwargs):
         raise _not_ported("runtime instancing", 9)
 
-    def set_medium(self, *args, **kwargs):
-        raise _not_ported("participating media", 7)
+    def set_environment_map(self, mat: Material):
+        """Environment light: a giant emissive sphere around the scene,
+        made at build (reference ``scene.rs:38-45``)."""
+        self.environment = mat
 
-    def set_environment_map(self, *args, **kwargs):
-        raise _not_ported("environment lights (spheres)", 7)
-
-    def _check_materials(self):
-        for m in self._materials:
-            if m.kind in (MF_DIELECTRIC, VOLUMETRIC):
-                raise _not_ported("glass, dispersion and volumetric "
-                                  "materials", 7)
-            if m.beckmann:
-                raise _not_ported("the Beckmann distribution", 7)
-            if max(m.kd_tex, m.ks_tex, m.tf_tex, m.ke_tex, m.nm_tex) >= 0:
-                raise _not_ported("textures and normal maps", 6)
+    def set_medium(self, absorption, scattering, g: float):
+        """Fill the scene with a homogeneous medium (reference
+        ``Scene::set_medium``, ``medium.rs:32-57``): sigma_t =
+        uplift(absorption + scattering), sigma_s = uplift(scattering), HG
+        parameter g in (-1, 1); distances scale by 1 / the world's largest
+        extent."""
+        assert -1.0 < g < 1.0
+        self.medium = (np.asarray(absorption, np.float64),
+                       np.asarray(scattering, np.float64), float(g))
 
     def build(self, dtype=np.float32, accel: str = "bvh",
               device=None) -> SceneData:
@@ -208,7 +310,12 @@ class SceneBuilder:
         device = resolve_device(device)
         if accel not in ("bvh", "kdtree", "none"):
             raise ValueError(f"unknown accel {accel!r}")
-        self._check_materials()
+        if self.environment is not None:
+            lo, hi = self._host_bounds()
+            center = 0.5 * (lo + hi)
+            radius = float(np.linalg.norm(center - lo))
+            self.add_sphere(center, max(radius, 1e-3) * 1.01, self.environment)
+            self.environment = None
 
         if self._tri_chunks:
             tri = {k: np.concatenate([g[k] for g, _, _ in self._tri_chunks])
@@ -269,26 +376,60 @@ class SceneBuilder:
 
         # lights + alias table (power = area x material power,
         # reference ``bvh.rs:104-191``)
-        prim_light = np.full(max(T, 1), -1, np.int32)
-        mat_power = np.array([m.mean_power() for m in self._materials])
-        light_prims = np.nonzero(tri_is_light)[0]
+        S, A = len(self._spheres), len(self._analytic)
+        prim_light = np.full(max(T + S + A, 1), -1, np.int32)
+        mat_power = np.array([
+            m.mean_power() * (self.textures.mean_rgb(m.ke_tex)
+                              if m.ke_tex >= 0 else 1.0)
+            for m in self._materials])
+        light_prims_t = np.nonzero(tri_is_light)[0]
         tri_area = 0.5 * np.linalg.norm(
             np.cross(tri["b"] - tri["a"], tri["c"] - tri["a"]), axis=-1)
-        powers = tri_area[light_prims] * mat_power[tri_mat[light_prims]]
-        prim_light[light_prims] = np.arange(len(light_prims))
+        powers = list(tri_area[light_prims_t]
+                      * mat_power[tri_mat[light_prims_t]])
+        light_prims = list(light_prims_t)
+        prim_light[light_prims_t] = np.arange(len(light_prims_t))
+        for j, (_, r, mid, is_light) in enumerate(self._spheres):
+            if is_light:
+                prim_light[T + j] = len(light_prims)
+                light_prims.append(T + j)
+                powers.append(4.0 * np.pi * r ** 2 * mat_power[mid])
+        for j, a_ in enumerate(self._analytic):
+            if a_[6]:                     # disk lights (``disk.rs:131-135``)
+                prim_light[T + S + j] = len(light_prims)
+                light_prims.append(T + S + j)
+                powers.append(np.pi * a_[3] ** 2 * mat_power[a_[5]])
         L = len(light_prims)
         if L > 0:
-            pdf, alias_p, alias_idx = _build_alias(np.asarray(powers, np.float64))
+            pdf, alias_p, alias_idx = _build_alias(np.asarray(powers,
+                                                              np.float64))
         else:
             pdf = alias_p = np.zeros(0)
             alias_idx = np.zeros(0, np.int64)
 
+        lo, hi = self._host_bounds()
+        # the medium (reference ``medium.rs:32-57``): t_scale fits the world
+        # into a unit cube; its phase material is one more table row
+        mats = list(self._materials)
+        medium = None
+        if self.medium is not None:
+            ab, sc, g = self.medium
+            t_scale = 1.0 / float(np.maximum(hi - lo, 1e-12).max())
+            med_mat = Material.volumetric(g, t_scale, sc + ab, sc)
+            medium = {"sigma_t": med_mat.sigma_t, "sigma_s": med_mat.sigma_s,
+                      "g": np.asarray(g), "t_scale": np.asarray(t_scale),
+                      "mat": np.asarray(len(mats))}
+            mats.append(med_mat)
+
         fields = {f"tri_{k}": v for k, v in tri.items()}
+        fields.update(self._shape_tables())
         fields.update(
-            tri_mat=tri_mat, light_prim=light_prims.astype(np.int32),
+            tri_mat=tri_mat, light_prim=np.asarray(light_prims, np.int32),
             light_pdf=pdf, alias_p=alias_p, alias_idx=alias_idx,
-            prim_light=prim_light, bounds=np.stack(self._host_bounds()),
-            materials=pack_materials(self._materials), n_bvh_tris=T_bvh)
+            prim_light=prim_light, bounds=np.stack([lo, hi]),
+            materials=pack_materials(mats), n_bvh_tris=T_bvh,
+            textures=self.textures.pack(dtype), medium=medium,
+            n_normal_maps=len(self.textures.normal_images))
         bvh_np = None
         if bvh is not None:
             bvh_np = {"lo": bvh.node_lo, "hi": bvh.node_hi,
@@ -303,6 +444,16 @@ class SceneBuilder:
                      "depth": kdt.max_depth}
         return from_numpy(fields, bvh_np, device, dtype=dtype, kd=kd_np)
 
+    def _shape_tables(self):
+        """The sphere and analytic tables as host arrays."""
+        out = {}
+        for records, cols in ((self._spheres, SPH_COLS),
+                              (self._analytic, ANA_COLS)):
+            for i, (k, (shape, dt)) in enumerate(cols.items()):
+                out[k] = np.array([r[i] for r in records], dt).reshape(
+                    (len(records),) + shape)
+        return out
+
     def _host_bounds(self):
         lo = np.full(3, np.inf)
         hi = np.full(3, -np.inf)
@@ -311,6 +462,25 @@ class SceneBuilder:
                 if len(g[k]):
                     lo = np.minimum(lo, g[k].min(axis=0))
                     hi = np.maximum(hi, g[k].max(axis=0))
+        for center, r, _, _ in self._spheres:
+            lo = np.minimum(lo, center - r)
+            hi = np.maximum(hi, center + r)
+        for kind, rot, trans, r, h, _, _ in self._analytic:
+            if kind == analytic.PLANE:
+                continue                  # infinite (``plane.rs:113-118``)
+            # conservative: the local box's corners, to world by rot^-1
+            if kind == analytic.DISK:
+                cl = np.array([[-r, -r, 0.0], [r, r, 0.0]])
+            elif kind == analytic.SPHERE:
+                cl = np.array([[-r, -r, -r], [r, r, r]])
+            else:
+                cl = np.array([[-r, 0.0, -r], [r, h, r]])
+            corners = np.array([[cl[i, 0], cl[j, 1], cl[k, 2]]
+                                for i in (0, 1) for j in (0, 1)
+                                for k in (0, 1)])
+            world = corners @ np.linalg.inv(rot).T + trans
+            lo = np.minimum(lo, world.min(axis=0))
+            hi = np.maximum(hi, world.max(axis=0))
         if not np.isfinite(lo).all():
             lo, hi = -np.ones(3), np.ones(3)
         return lo, hi
@@ -335,7 +505,10 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     ``np.asarray``: ``fields`` holds ``tri_{a,b,c,na,nb,nc,uva,uvb,uvc}``,
     ``tri_mat``, ``light_prim``, ``light_pdf``, ``alias_p``, ``alias_idx``,
     ``prim_light``, ``bounds``, ``n_bvh_tris`` and ``materials`` (a dict of
-    the packed material table); ``bvh`` holds the binary tables
+    the packed material table), and, where the scene has them, the sphere
+    and analytic tables ``sph_*`` and ``ana_*``, ``textures`` (the texture
+    table's dict), ``medium`` (sigma_t, sigma_s, g, t_scale, mat) and
+    ``n_normal_maps``; ``bvh`` holds the binary tables
     ``lo, hi, right, first, count, axis`` (and optionally ``depth``) or is
     ``None`` for a brute-force scene, and is kept only in the kernel's
     layout (``bvh_kernel.pack_nodes``/``pack_tris``); ``kd`` holds the
@@ -356,11 +529,13 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
 
     kinds = frozenset(int(k) for k in np.unique(np.asarray(
         fields["materials"]["kind"])))
-    if kinds & {MF_DIELECTRIC, VOLUMETRIC}:
-        raise _not_ported("glass, dispersion and volumetric materials", 7)
-    if np.any(np.asarray(fields["materials"]["mf_beck"])):
-        raise _not_ported("the Beckmann distribution", 7)
+    shapes = {k: fields.get(k, np.zeros((0,) + shape, dt))
+              for k, (shape, dt) in {**SPH_COLS, **ANA_COLS}.items()}
     T = int(np.asarray(fields["tri_a"]).shape[0])
+    S = int(np.asarray(shapes["sph_radius"]).shape[0])
+    A = int(np.asarray(shapes["ana_kind"]).shape[0])
+    tex = fields.get("textures")
+    medium = fields.get("medium")
     T_bvh = int(fields.get("n_bvh_tris", T))
     L = int(np.asarray(fields["light_prim"]).shape[0])
     bvh_dev = None
@@ -390,19 +565,29 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     return SceneData(
         **{f"tri_{k}": tens(fields[f"tri_{k}"]) for k in TRI_KEYS},
         tri_mat=tens(fields["tri_mat"]),
+        **{k: tens(v) for k, v in shapes.items()},
         light_prim=tens(fields["light_prim"]),
         light_pdf=tens(fields["light_pdf"]),
         alias_p=tens(fields["alias_p"]),
         alias_idx=tens(fields["alias_idx"]),
         prim_light=tens(fields["prim_light"]),
         materials={k: tens(v) for k, v in fields["materials"].items()},
+        textures=None if tex is None else {k: tens(v) for k, v in tex.items()},
+        medium=None if medium is None else {k: tens(v)
+                                            for k, v in medium.items()},
         bvh=bvh_dev,
         kdtree=kd_dev,
         bounds=tens(fields["bounds"]),
         n_tris=T, n_bvh_tris=T_bvh if bvh is not None else T,
+        n_spheres=S, n_analytic=A,
+        n_ana_lights=int((np.asarray(fields["light_prim"]) >= T + S).sum()),
         n_lights=L,
         n_shadow_rays=max(1, int(np.log2(max(L, 1))) if L > 1 else 1),
         kinds_present=kinds,
+        beckmann=bool(np.any(np.asarray(fields["materials"]["mf_beck"]))),
+        tex_kinds=() if tex is None else tuple(
+            sorted(int(k) for k in np.unique(np.asarray(tex["kind"])))),
+        n_normal_maps=int(fields.get("n_normal_maps", 0)),
     )
 
 

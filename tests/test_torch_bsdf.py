@@ -116,6 +116,7 @@ def test_f_pdf(case, which):
 
 
 def test_dispersive_mask_is_empty_for_ported_kinds(case):
+    """No kind of this table (slice 1's) is a dispersive dielectric."""
     _, mp_t, h = case
     mats_t = {k: torch.as_tensor(v) for k, v in _materials(tmat).items()}
     mask = tbsdf.dispersive_mask(mats_t, torch.as_tensor(h["mat"]))
@@ -123,8 +124,28 @@ def test_dispersive_mask_is_empty_for_ported_kinds(case):
 
 
 def test_unported_kinds_raise():
+    """Glass gathers (slice 5) and matches the JAX package; IMPORTANCE
+    transport, which waits for the bidirectional integrator, raises with
+    its ROADMAP item."""
+    from lumo_tpu_torch.config import IMPORTANCE
     mats = {k: torch.as_tensor(v) for k, v in tmat.pack_materials(
         [tmat.Material.glass()]).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbsdf.gather_params(mats, torch.zeros(4, dtype=torch.int64),
-                            torch.full((4, 4), 500.0), None)
+    mats_j = {k: jnp.asarray(v) for k, v in jmat.pack_materials(
+        [jmat.Material.glass()]).items()}
+    lam = np.linspace(380.0, 700.0, 16, dtype=np.float32).reshape(4, 4)
+    mp = tbsdf.gather_params(mats, torch.zeros(4, dtype=torch.int64),
+                             torch.as_tensor(lam), None)
+    mp_j = jbsdf.gather_params(mats_j, jnp.zeros(4, jnp.int32),
+                               jnp.asarray(lam), None)
+    assert mp["kinds_present"] == mp_j["kinds_present"]
+    for k in ("kind", "is_delta", "eta_const"):
+        np.testing.assert_array_equal(mp[k].numpy(), np.asarray(mp_j[k]))
+    for k in ("eta4", "ks", "tf"):
+        np.testing.assert_allclose(mp[k].numpy(), np.asarray(mp_j[k]),
+                                   rtol=RTOL, err_msg=k)
+    assert bool(mp["is_delta"].all()) and not bool(mp["eta_const"].any())
+    w = torch.tensor([[0.0, 0.6, 0.8]] * 4)
+    n = torch.tensor([[0.0, 0.0, 1.0]] * 4)
+    with pytest.raises(NotImplementedError, match="item 8\\)"):
+        tbsdf.f_pdf(mp, w, -w, n, n, torch.zeros(4, dtype=torch.bool),
+                    torch.as_tensor(lam), mode=IMPORTANCE)

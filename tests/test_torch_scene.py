@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (BVH_KEYS, SCENE_FIELDS, blob_box, jax_scene_arrays,
-                         port_scene_from_jax)
+from _torch_port import (BVH_KEYS, SCENE_FIELDS, SHAPE_FIELDS, blob_box,
+                         jax_scene_arrays, port_scene_from_jax)
 from lumo_tpu_torch.accel import bvh_kernel
 from lumo_tpu_torch.scene import scene as tscene
 from lumo_tpu_torch.scene.materials import Material
@@ -86,14 +86,50 @@ def test_kdtree_scene_builds():
         blob_box("lumo_tpu_torch", 1).build(accel="octree", device="cpu")
 
 
-@pytest.mark.parametrize("what", ["sphere", "glass", "medium"])
+def _part_scene(pkg, what):
+    """The subdiv-1 blob box with one part of slice 5 added."""
+    import importlib
+    M = importlib.import_module(f"{pkg}.scene.materials").Material
+    sb = blob_box(pkg, 1)
+    if what == "sphere":
+        sb.add_sphere((0.2, -0.5, -1.0), 0.3, M.diffuse((0.5, 0.5, 0.5)))
+        sb.add_sphere((-0.4, 0.6, -1.2), 0.1, M.light(3.0))
+    elif what == "glass":
+        sb.add_box(M.glass())
+    elif what == "medium":
+        sb.set_medium((0.1, 0.1, 0.1), (0.1, 0.1, 0.1), 0.0)
+    return sb
+
+
+@pytest.mark.parametrize("what", ["sphere", "glass", "medium",
+                                  "instancing"])
 def test_unported_parts_raise(what):
-    sb = blob_box("lumo_tpu_torch", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "sphere":
-            sb.add_sphere((0, 0, 0), 1.0, Material.diffuse((0.5, 0.5, 0.5)))
-        elif what == "glass":
-            sb.add_box(Material.glass())
-            sb.build(device="cpu")
-        else:
-            sb.set_medium((0.1, 0.1, 0.1), (0.1, 0.1, 0.1), 0.0)
+    """Spheres, glass and the medium build (slice 5) and their arrays
+    equal the JAX package's, carried through ``from_numpy``; runtime
+    instancing still raises with its ROADMAP item."""
+    if what == "instancing":
+        sb = blob_box("lumo_tpu_torch", 1)
+        with pytest.raises(NotImplementedError, match="item 9\\)"):
+            sb.add_instanced_triangles(np.zeros((3, 3)), [[0, 1, 2]],
+                                       [np.eye(4)], [0])
+        return
+    js = _part_scene("lumo_tpu", what).build()
+    ts = _part_scene("lumo_tpu_torch", what).build(device="cpu")
+    carried = port_scene_from_jax(js)
+    for k in SCENE_FIELDS + SHAPE_FIELDS:
+        want = np.asarray(getattr(js, k))
+        np.testing.assert_array_equal(getattr(ts, k).numpy(), want, err_msg=k)
+        np.testing.assert_array_equal(getattr(carried, k).numpy(), want,
+                                      err_msg=k)
+    for k, v in js.materials.items():
+        np.testing.assert_array_equal(ts.materials[k].numpy(), np.asarray(v),
+                                      err_msg=k)
+    assert ts.kinds_present == carried.kinds_present
+    assert (ts.n_spheres, ts.medium is None) == (js.n_spheres,
+                                                 js.medium is None)
+    if what == "sphere":
+        assert ts.n_spheres == 2 and ts.n_lights == js.n_lights == 3
+    if what == "medium":
+        for k, v in js.medium.items():
+            np.testing.assert_allclose(ts.medium[k].numpy(), np.asarray(v),
+                                       rtol=1e-7, err_msg=k)
