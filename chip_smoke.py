@@ -20,9 +20,17 @@ paths over ``bench.py``'s scenes at 256x256:
   forward-only rays/s, peak memory with the checkpoint on and off; the
   gradients through K2 against the plain versions (``[grad-parity]``) and
   through K3 against K2's (``[grad-kd]``);
-- the persistent wavefront: ``integrate_stream`` over 32 samples per
+- the persistent wavefront: ``integrate_stream`` over 16 samples per
   pixel against batch mode (``[stream]``), and ``Renderer.stream()`` on
   the kd scene (``[render-kd-stream]``).
+- the example programs' scenes (glass, textures, spheres, analytic
+  shapes, a medium) at 512^2 through ``Renderer(...).integrator("path")``
+  (``[materials]``);
+- the direct-light integrator on the 327,692-triangle scene through K2
+  and K3 (``[direct]``), and the bidirectional integrator on
+  ``examples/caustics.py``'s scene through K2 and K3, ``examples/box.py``'s
+  (dense) and the 327,692-triangle scene through K2 (``[bdpt]``): light
+  subpaths, connection rays and dead lanes through the same kernels.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -51,7 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 256            # bench.py's resolution
 SPP = 4              # 4 spp x 256^2 = one wavefront of 262,144 lanes
 PARITY_RES = 64
-FRAMES = 5           # timed frames of the render
+FRAMES = 2           # timed frames of the render (5 until slice 6)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -500,7 +508,7 @@ def phase_render(scene, camera, dev):
     rate = sorted(r / w for r, w in zip(rays, walls))
     log("render", res=f"{RES}x{RES}", spp=SPP, lanes=RES * RES * SPP,
         frames=FRAMES, wall_s=json.dumps(walls).replace(" ", ""),
-        rays=int(rays[-1]), rays_per_s_median=rate[FRAMES // 2],
+        rays=int(rays[-1]), rays_per_s_median=float(np.median(rate)),
         rays_per_s_min=rate[0], rays_per_s_max=rate[-1],
         mean_depth=float(depth.float().mean()),
         launches=json.dumps(launches).replace(" ", ""),
@@ -512,37 +520,40 @@ def phase_render(scene, camera, dev):
 def phase_profile(phase, frame, span, kernel_tag):
     """One more frame under torch.profiler: the traversal kernels' device
     time and the device's idle share over the host range ``span``.
-    ``frame()`` renders the frame and returns its wall seconds."""
+    ``frame()`` renders the frame and returns its wall seconds.  Reads the
+    raw Kineto events (``prof.events()`` takes a minute for the stream
+    frame's 200,000)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = frame()
-    events = list(prof.events())
-    card = lambda e: str(e.device_type).endswith("CUDA")
-    window = [e.time_range for e in events
-              if e.name == span and not card(e)]
+    events = list(prof.profiler.kineto_results.events())
+    card = lambda e: str(e.device_type()).endswith("CUDA")
+    interval = lambda e: (e.start_ns(), e.start_ns() + e.duration_ns())
+    window = [interval(e) for e in events if e.name() == span
+              and not card(e)]
     # device work: kernels, copies and sets (not the range's own marker)
-    on_card = [e for e in events if card(e) and e.name != span]
+    on_card = [e for e in events if card(e) and e.name() != span]
     if not window or not on_card:
         log(phase, device_events=len(on_card), device_time="not measured")
         return {}
-    w0, w1 = window[0].start, window[0].end
-    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
-                   for e in on_card)
-    busy, end = 0.0, w0
+    w0, w1 = window[0]
+    spans = sorted((max(a, w0), min(b, w1)) for a, b in map(interval,
+                                                             on_card))
+    busy, end = 0, w0
     for a, b in spans:                  # union of the device intervals
         a = max(a, end)
         if b > a:
             busy, end = busy + b - a, b
-    us = lambda tag: sum(e.time_range.elapsed_us() for e in on_card
-                         if tag in e.name)
-    per_frame = {"closest": us(f"{kernel_tag}<false") / 1e3,
-                 "any": us(f"{kernel_tag}<true") / 1e3}
-    log(phase, wall_ms=wall * 1e3, window_ms=(w1 - w0) / 1e3,
-        device_events=len(on_card), device_busy_ms=busy / 1e3,
+    ms = lambda tag: sum(e.duration_ns() for e in on_card
+                         if tag in e.name()) / 1e6
+    per_frame = {"closest": ms(f"{kernel_tag}<false"),
+                 "any": ms(f"{kernel_tag}<true")}
+    log(phase, wall_ms=wall * 1e3, window_ms=(w1 - w0) / 1e6,
+        device_events=len(on_card), device_busy_ms=busy / 1e6,
         idle_share=1.0 - busy / (w1 - w0),
         closest_ms_total=per_frame["closest"], any_ms_total=per_frame["any"],
-        kernel_launches=sum(f"{kernel_tag}<" in e.name for e in on_card))
+        kernel_launches=sum(f"{kernel_tag}<" in e.name() for e in on_card))
     return per_frame
 
 
@@ -615,12 +626,11 @@ def kd_frame(scene, camera, spp, delta=None):
 
 
 def phase_render_kd(scene, camera):
-    """Two warm-up frames, then FRAMES timed frames of the kd main path;
+    """A warm-up frame, then FRAMES timed frames of the kd main path;
     the launch counts are reset just before each frame and read just
     after."""
     from lumo_tpu_torch.accel import kd_kernel
-    for _ in range(2):
-        kd_frame(scene, camera, SPP)
+    kd_frame(scene, camera, SPP)                  # warm-up
     walls, rays, per_frame = [], [], []
     for _ in range(FRAMES):
         for k in kd_kernel.LAUNCHES:
@@ -636,9 +646,9 @@ def phase_render_kd(scene, camera):
         raise AssertionError(f"kd main path launches per frame: {per_frame}")
     rate = sorted(r / w for r, w in zip(rays, walls))
     log("render-kd", entry="Renderer.samples(4).render()", res=f"{RES}x{RES}",
-        spp=SPP, lanes=RES * RES * SPP, frames=FRAMES, warmup_frames=2,
+        spp=SPP, lanes=RES * RES * SPP, frames=FRAMES, warmup_frames=1,
         wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
-        rays_per_s_median=rate[FRAMES // 2], rays_per_s_min=rate[0],
+        rays_per_s_median=float(np.median(rate)), rays_per_s_min=rate[0],
         rays_per_s_max=rate[-1],
         mean_depth=rays[-1] / 2.0 / (RES * RES * SPP),
         launches=json.dumps(launches).replace(" ", ""),
@@ -778,14 +788,15 @@ def phase_sync(dev):
 # ---------------------------------------------------------------------------
 # the differentiable path (fixed depth, checkpointed bounces) and the stream
 
-GRAD_CORNELL_SPP = 4   # bench.py:44's 64 spp, cut for the script's time
+GRAD_CORNELL_SPP = 2   # bench.py:44's 64 spp, cut for the script's time
 GRAD_CORNELL_DEPTH = 6  # bench.py:46
 GRAD_SPP = 2           # bench.py:275-276
 GRAD_DEPTH = 4
-GRAD_RUNS = 3          # timed runs after a warm-up
-STREAM_SPP = 32        # bench.py:216-219: 32 spp through 262,144 lanes
+GRAD_RUNS = 1          # timed runs after a warm-up (3 until slice 6)
+STREAM_RUNS = 1        # stream and batch runs in turns (3 until slice 6)
+STREAM_SPP = 16        # bench.py:216-219's 32 spp, cut for the script's time
 STREAM_LANES = 262144
-KD_STREAM_FRAMES = 3
+KD_STREAM_FRAMES = 1   # 3 until slice 6
 # gradient agreement of two routes on lanes whose prims agree: the card's
 # scatter-adds sum in any order
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
@@ -924,12 +935,12 @@ def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
     both = {k: run["launches"]["fwd"][k] + run["launches"]["bwd"][k]
             for k in ("closest", "any")}
     log(phase, res=f"{res}x{res}", spp=spp, depth=depth, lanes=res * res,
-        runs=GRAD_RUNS, fwd_bwd_rays_per_s_median=rate[GRAD_RUNS // 2],
+        runs=GRAD_RUNS, fwd_bwd_rays_per_s_median=float(np.median(rate)),
         fwd_bwd_rays_per_s_min=rate[0], fwd_bwd_rays_per_s_max=rate[-1],
-        checkpoint_fwd_bwd_rays_per_s_median=rate_ckpt[GRAD_RUNS // 2],
+        checkpoint_fwd_bwd_rays_per_s_median=float(np.median(rate_ckpt)),
         checkpoint_fwd_bwd_rays_per_s_min=rate_ckpt[0],
         checkpoint_fwd_bwd_rays_per_s_max=rate_ckpt[-1],
-        fwd_rays_per_s_median=rate_f[GRAD_RUNS // 2],
+        fwd_rays_per_s_median=float(np.median(rate_f)),
         fwd_rays_per_s_min=rate_f[0], fwd_rays_per_s_max=rate_f[-1],
         wall_s=json.dumps([r["wall"] for r in runs]).replace(" ", ""),
         checkpoint_wall_s=json.dumps(
@@ -1055,9 +1066,10 @@ def phase_grad_kd(scene_kd, scene_bvh, parity):
 
 def phase_stream(scene, camera, dev):
     """bench.py:222-265's forward on the BVH scene: ``integrate_stream``
-    with 262,144 lanes over 32 spp of 256^2 against batch ``integrate`` over
-    the same samples (8 waves of 262,144), in turns.  Sum of depths equal,
-    per-pixel radiance sums within rtol 1e-4, atol 1e-5."""
+    with 262,144 lanes over STREAM_SPP spp of 256^2 against batch
+    ``integrate`` over the same samples (waves of 262,144), in turns.  Sum
+    of depths equal, per-pixel radiance sums within rtol 1e-4, atol
+    1e-5."""
     from lumo_tpu_torch.accel import bvh_kernel
     from lumo_tpu_torch.integrators import path_trace
     n = RES * RES
@@ -1105,7 +1117,7 @@ def phase_stream(scene, camera, dev):
 
     stream()                                        # warm-up
     walls = {"batch": [], "stream": []}
-    for _ in range(GRAD_RUNS):
+    for _ in range(STREAM_RUNS):
         b, wall_b, launch_b = timed(batch)
         s, wall_s, launch_s = timed(stream)
         walls["batch"].append(wall_b)
@@ -1114,7 +1126,7 @@ def phase_stream(scene, camera, dev):
     depth_s, rad_s, iters_s = s
     close = torch.isclose(rad_s, rad_b, rtol=1e-4, atol=1e-5).all(dim=1)
     rays = 2.0 * float(depth_s)
-    med = lambda xs: sorted(xs)[len(xs) // 2]
+    med = lambda xs: float(np.median(xs))
     per = phase_profile("stream-profile", lambda: timed(stream)[1], "stream",
                         "traverse")
     log("stream", res=f"{RES}x{RES}", spp=STREAM_SPP, samples=n_samples,
@@ -1189,7 +1201,7 @@ def phase_render_kd_stream(scene, camera):
     log("render-kd-stream", entry="Renderer.samples(4).stream().render()",
         res=f"{RES}x{RES}", spp=SPP, frames=KD_STREAM_FRAMES,
         wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
-        rays_per_s_median=rate[len(rate) // 2], rays_per_s_min=rate[0],
+        rays_per_s_median=float(np.median(rate)), rays_per_s_min=rate[0],
         rays_per_s_max=rate[-1],
         launches=json.dumps(per_frame[0]).replace(" ", ""),
         image_mean=float(img.mean()), fixed_delta_pixels=close.size,
@@ -1205,8 +1217,8 @@ def phase_render_kd_stream(scene, camera):
 # slice 5: the example programs' scenes (materials, textures, shapes, media)
 
 MAT_RES = 512          # the examples' resolution
-MAT_SPP = 4            # cut from the examples' 512 spp for the script's time
-MAT_FRAMES = 2         # timed frames per scene (3 push the script past 600 s)
+MAT_SPP = 2            # cut from the examples' 512 spp (4 until slice 6)
+MAT_FRAMES = 1         # timed frames per scene (2 until slice 6)
 MAT_PARITY_RES = 128
 MAT_SCENES = (("dragon", "bvh"), ("dragon-kd", "kdtree"), ("dof", "bvh"),
               ("nefertiti", "bvh"), ("medium", "bvh"), ("circle", "bvh"))
@@ -1300,6 +1312,24 @@ def example_scene(name, dev, accel):
                           Material.diffuse(hsv_to_rgb(theta - PI / 8)))
         cam = dict(origin=(0.0, 1.0, 1.5), towards=(0.0, -0.5, 0.0),
                    up=(0.0, 1.0, -1.0))
+    elif name in ("box", "caustics"):
+        sb = empty_box(uplift.from_srgb8(242, 242, 242).reshape(4),
+                       Material.diffuse(uplift.from_srgb8(255, 0, 255)
+                                        .reshape(4)),
+                       Material.diffuse(uplift.from_srgb8(0, 255, 255)
+                                        .reshape(4)))
+        if name == "box":
+            sb.add_sphere((-0.45, -0.5, -1.5), 0.25, Material.mirror())
+            sb.add_sphere((0.45, -0.5, -1.3), 0.25, Material.glass())
+        else:
+            suzanne = blob(4, 7, 0.15).to_unit_size()
+            (suzanne.clone().to_origin().rotate_y(-PI / 8).rotate_z(PI / 8)
+             .rotate_x(-PI / 8).translate(0.5, -0.3, -1.0)
+             .add_to(sb, Material.mirror()))
+            (suzanne.clone().to_origin().rotate_y(PI / 8).rotate_z(-PI / 8)
+             .rotate_x(PI / 16).translate(-0.35, 0.25, -1.25)
+             .add_to(sb, Material.glass()))
+            cam = dict(origin=(0.0, 0.0, 2.0), zoom=3.0)
     else:
         raise ValueError(name)
     camera = lambda res: getattr(cam_mod, fn)(resolution=(res, res),
@@ -1307,40 +1337,46 @@ def example_scene(name, dev, accel):
     return sb.build(device=dev, accel=accel), camera, illuminant
 
 
-def materials_frame(scene, camera, spp, illuminant, delta=None,
-                    square=False):
-    """One frame through ``Renderer(scene, camera).integrator("path")``:
+def integrator_frame(scene, camera, kind, spp, illuminant=None, delta=None,
+                     square=False, configure=None):
+    """One frame through ``Renderer(scene, camera).integrator(kind)``:
     (image (H, W, 3) numpy, 2 x sum of path depths, wall seconds of
-    ``render``, bounce iterations)."""
+    ``render``, bounce iterations of the path integrator, splats set).  A
+    BDPT sample's depth counts the vertices of both its subpaths."""
     from lumo_tpu_torch import film, renderer
-    depths, bounces = [], [0]
-    real, real_bounce = (renderer.path_trace.integrate,
-                         renderer.path_trace.bounce)
+    mod = {"path": renderer.path_trace, "direct": renderer.direct_light,
+           "bdpt": renderer.bdpt}[kind]
+    depths, splats, bounces = [], [], [0]
+    real, real_bounce = mod.integrate, renderer.path_trace.bounce
 
     def integrate(*args, **kwargs):
         out = real(*args, **kwargs)
-        depths.append(out[2].sum())
+        depths.append(out[-1].sum())
+        if kind == "bdpt":
+            splats.append(out[4].sum())
         return out
 
     def bounce(*args, **kwargs):
         bounces[0] += 1
         return real_bounce(*args, **kwargs)
 
-    r = renderer.Renderer(scene, camera).integrator("path").samples(spp)
+    r = renderer.Renderer(scene, camera).integrator(kind).samples(spp)
     if illuminant:
         r.illuminant(illuminant)
     if delta is not None:
         r.fixed_rr_delta(delta)
     if square:
         r.pixel_filter(film.PixelFilter.square())
+    if configure is not None:
+        configure(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(renderer.path_trace, "integrate", integrate), \
+    with mock.patch.object(mod, "integrate", integrate), \
             mock.patch.object(renderer.path_trace, "bounce", bounce), \
             torch.profiler.record_function("render"):
         img = r.render(verbose=False)    # ends with the image on the host
     wall = time.perf_counter() - t0
-    return img, 2.0 * float(sum(depths)), wall, bounces[0]
+    return img, 2.0 * float(sum(depths)), wall, bounces[0], int(sum(splats))
 
 
 def _launch_counts():
@@ -1407,12 +1443,12 @@ def idle_share(phase, frame):
 def phase_materials(dev):
     """Slice 5's paths: the scenes of ``examples/{dragon,dof,nefertiti,
     medium,circle}.py`` built with the port and rendered through
-    ``Renderer(...).integrator("path")`` at the examples' 512^2 and 4 spp
-    (cut from their 512 spp): per scene the build seconds, the primitive
+    ``Renderer(...).integrator("path")`` at the examples' 512^2 and MAT_SPP
+    spp (cut from their 512 spp): per scene the build seconds, the primitive
     counts, rays/s (median, fastest and slowest of MAT_FRAMES frames; the
     earlier phases have warmed the card), bounces, and the K2/K3 launches
     per frame (reset just before each frame, read just after); the idle
-    share of one profiled frame of dragon and dof.  Then at 128^2, 1 spp,
+    share of one profiled frame of dragon.  Then at 128^2, 1 spp,
     fixed Russian roulette threshold and the square filter (a pixel is
     one sample):
     dragon's and dof's kernel-routed image against the plain-routed one
@@ -1432,7 +1468,8 @@ def phase_materials(dev):
         walls, rays, per_frame, bounces = [], [], [], []
         for _ in range(MAT_FRAMES):
             _reset_launches()
-            img, r, wall, nb = materials_frame(scene, camera, MAT_SPP, illum)
+            img, r, wall, nb, _ = integrator_frame(scene, camera, "path",
+                                                   MAT_SPP, illum)
             per_frame.append(_launch_counts())
             if img.shape != (MAT_RES, MAT_RES, 3) or not np.isfinite(
                     img).all():
@@ -1462,10 +1499,10 @@ def phase_materials(dev):
             launches=json.dumps(launches).replace(" ", ""),
             image_mean=float(img.mean()), finite=True)
         log("materials", **fields)
-        if name in ("dragon", "dof"):
+        if name == "dragon":
             idle_share(f"materials-profile-{name}",
-                       lambda: materials_frame(scene, camera, MAT_SPP,
-                                               illum)[2])
+                       lambda: integrator_frame(scene, camera, "path",
+                                                MAT_SPP, illum)[2])
         if name in kept:
             scenes[name] = (scene, accel, illum, make_camera)
         del scene
@@ -1475,14 +1512,14 @@ def phase_materials(dev):
     for name in kept:
         scene, accel, illum, make_camera = scenes[name]
         cam = make_camera(MAT_PARITY_RES)
-        images[name] = materials_frame(scene, cam, 1, illum, delta=1.0,
-                                       square=True)[0]
+        images[name] = integrator_frame(scene, cam, "path", 1, illum,
+                                        delta=1.0, square=True)[0]
         if name == "dragon-kd":
             continue
         t0 = time.perf_counter()
         with _plain_routed(accel):
-            img_p = materials_frame(scene, cam, 1, illum, delta=1.0,
-                                    square=True)[0]
+            img_p = integrator_frame(scene, cam, "path", 1, illum,
+                                     delta=1.0, square=True)[0]
         flips, err = _image_parity(images[name], img_p, 1e-5, 1e-7)
         log("materials-parity", scene=name, res=f"{MAT_PARITY_RES}x"
             f"{MAT_PARITY_RES}", spp=1, pixels=img_p.shape[0] ** 2,
@@ -1499,6 +1536,184 @@ def phase_materials(dev):
     if flips > n_pix // 100:
         raise AssertionError("dragon: K3 and K2 renders disagree")
     log("materials", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the direct-light and bidirectional integrators
+
+DIRECT_FRAMES = 3      # timed frames of [direct] after a warm-up
+BDPT_SPP = 1           # cut from caustics.py's 2,048 and box.py's 64 spp
+BDPT_FRAMES = 2        # timed frames per scene after a warm-up
+BDPT_BOX_FRAMES = 1    # box's, which checks no kernel
+BDPT_BENCH_DEPTH = 6
+
+
+def _timed_frames(phase, name, accel, frame, n_frames, res):
+    """A warm-up frame, then ``n_frames`` timed ones with the launch
+    counts reset just before and read just after each, and the peak
+    device memory of the last: rays/s (median, fastest, slowest), launches
+    a frame (equal in every frame, of the scene's kernel only), splats,
+    finiteness."""
+    frame()
+    walls, rays, per_frame, splats = [], [], [], []
+    for _ in range(n_frames):
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        img, r, wall, _, sp = frame()
+        per_frame.append(_launch_counts())
+        if img.shape != (res, res, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"{phase} {name}: wrong shape or non-finite")
+        walls.append(wall)
+        rays.append(r)
+        splats.append(sp)
+    launches = per_frame[0]
+    k2 = launches["k2_closest"] + launches["k2_any"]
+    k3 = launches["k3_closest"] + launches["k3_any"]
+    want = {"bvh": (True, False), "kdtree": (False, True),
+            "dense": (False, False)}[accel]
+    if (k2 > 0, k3 > 0) != want or any(f != launches for f in per_frame):
+        raise AssertionError(f"{phase} {name}: launches per frame "
+                             f"{per_frame}")
+    rate = sorted(r / w for r, w in zip(rays, walls))
+    log(phase, scene=name, accel=accel, res=f"{res}x{res}",
+        frames=n_frames, warmup_frames=1,
+        wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
+        rays_per_s_median=float(np.median(rate)), rays_per_s_min=rate[0],
+        rays_per_s_max=rate[-1],
+        launches=json.dumps(launches).replace(" ", ""),
+        splats=splats[-1], peak_bytes=torch.cuda.max_memory_allocated(),
+        image_mean=float(img.mean()), finite=True)
+    return launches
+
+
+def _routed_parity(phase, name, accel, frame, rtol=1e-5, atol=1e-6):
+    """The kernel-routed frame against the plain-routed one: pixels within
+    (rtol, atol), the rest counted as flips (at most 1%).  Returns the
+    kernel-routed image."""
+    img_k = frame()[0]
+    t0 = time.perf_counter()
+    with _plain_routed(accel):
+        img_p = frame()[0]
+    flips, err = _image_parity(img_k, img_p, rtol, atol)
+    n_pix = img_p.shape[0] * img_p.shape[1]
+    log(phase, case="kernel-vs-plain", scene=name, accel=accel,
+        res=f"{img_p.shape[1]}x{img_p.shape[0]}", pixels=n_pix, flips=flips,
+        image_max_abs_err=err, rtol=rtol, atol=atol,
+        plain_render_s=round(time.perf_counter() - t0, 2))
+    if flips > n_pix // 100:
+        raise AssertionError(f"{phase} {name}: kernel and plain renders "
+                             f"disagree")
+    return img_k
+
+
+def phase_direct(scenes, camera, dev):
+    """The direct-light integrator through ``Renderer(scene,
+    camera).integrator("direct").samples(4).render()`` on the
+    327,692-triangle scene built as BVH (K2) and as kd-tree (K3) at
+    256^2: rays/s over DIRECT_FRAMES frames after a warm-up, K2/K3
+    launches a frame, the idle share of one profiled frame, finiteness;
+    then at 64^2 (1 spp, square filter) the kernel-routed image against
+    the plain-routed one (rtol 1e-5, atol 1e-6, flips counted) and the K3
+    image against the K2 image."""
+    from lumo_tpu_torch.camera import build_camera
+    t_phase = time.perf_counter()
+    small = build_camera(resolution=(PARITY_RES, PARITY_RES), device=dev)
+    images = {}
+    launches = {}
+    for accel, scene in scenes.items():
+        frame = lambda: integrator_frame(scene, camera, "direct", SPP)
+        launches[accel] = _timed_frames("direct", "bench", accel, frame,
+                                        DIRECT_FRAMES, RES)
+        idle_share(f"direct-profile-{accel}", lambda: frame()[2])
+        images[accel] = _routed_parity(
+            "direct", "bench", accel, lambda: integrator_frame(
+                scene, small, "direct", 1, square=True))
+    flips, err = _image_parity(images["kdtree"], images["bvh"], 1e-5, 1e-6)
+    log("direct", case="kd-vs-bvh", scene="bench", pixels=PARITY_RES ** 2,
+        flips=flips, image_max_abs_err=err, rtol=1e-5, atol=1e-6)
+    if flips > PARITY_RES ** 2 // 100:
+        raise AssertionError("direct: K3 and K2 renders disagree")
+    log("direct", phase_s=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def phase_bdpt(bench, camera, dev):
+    """The bidirectional integrator through ``Renderer(scene,
+    camera).integrator("bdpt")`` on ``examples/caustics.py``'s scene at
+    its 512^2 (``bdpt_depth`` automatic: 12 with glass) built as BVH (K2)
+    and as kd-tree (K3), ``examples/box.py``'s at 512^2 (dense, its wide
+    Gaussian filter) and the 327,692-triangle scene at 256^2 with depth
+    6 (K2); BDPT_SPP spp, BDPT_FRAMES timed frames after a warm-up
+    (BDPT_BOX_FRAMES on box): per
+    scene rays/s, K2/K3 launches a frame, splats a frame, peak device
+    memory, the idle share of one profiled frame, finiteness.  Then at
+    64^2 (1 spp, fixed Russian-roulette threshold, square filter) the K2
+    images against the plain-routed ones and caustics' K3 image against
+    its K2 image (rtol 1e-5, atol 1e-6, flips counted)."""
+    from lumo_tpu_torch import film
+    from lumo_tpu_torch.camera import build_camera
+    t_phase = time.perf_counter()
+    gaussian = lambda r: r.pixel_filter(film.PixelFilter.gaussian(
+        2.5, 2.5 / 4.0))
+    small_images = {}
+    launches = {}
+    for name, accel in (("caustics", "bvh"), ("caustics-kd", "kdtree"),
+                        ("box", "dense"), ("bench", "bvh")):
+        t0 = time.perf_counter()
+        if name == "bench":
+            scene, make_camera, res = bench, None, RES
+            cam = camera
+            conf = lambda r: r.bdpt_depth(BDPT_BENCH_DEPTH)
+        else:
+            scene, make_camera, _ = example_scene(
+                name.replace("-kd", ""), dev,
+                "kdtree" if accel == "kdtree" else "bvh")
+            res = MAT_RES
+            cam = make_camera(res)
+            conf = gaussian if name == "box" else None
+        torch.cuda.synchronize()
+        log("bdpt", scene=name, build_s=round(time.perf_counter() - t0, 3),
+            tris=scene.n_tris, spheres=scene.n_spheres,
+            depth=_bdpt_depth(scene, conf))
+        frame = lambda: integrator_frame(scene, cam, "bdpt", BDPT_SPP,
+                                         configure=conf)
+        launches[name] = _timed_frames(
+            "bdpt", name, accel, frame,
+            BDPT_BOX_FRAMES if name == "box" else BDPT_FRAMES, res)
+        idle_share(f"bdpt-profile-{name}", lambda: frame()[2])
+        if accel == "dense":
+            del scene
+            continue
+        small = (build_camera(resolution=(PARITY_RES, PARITY_RES),
+                              device=dev) if make_camera is None
+                 else make_camera(PARITY_RES))
+        small_frame = lambda: integrator_frame(
+            scene, small, "bdpt", 1, delta=1.0, square=True,
+            configure=None if name != "bench" else conf)
+        # K3 is held against K2 below (its plain walk, which
+        # [parity-kd] and [direct] run, would take 40 s here)
+        small_images[name] = (small_frame()[0] if accel == "kdtree" else
+                              _routed_parity("bdpt", name, accel,
+                                             small_frame))
+        del scene
+    flips, err = _image_parity(small_images["caustics-kd"],
+                               small_images["caustics"], 1e-5, 1e-6)
+    log("bdpt", case="kd-vs-bvh", scene="caustics", pixels=PARITY_RES ** 2,
+        flips=flips, image_max_abs_err=err, rtol=1e-5, atol=1e-6)
+    if flips > PARITY_RES ** 2 // 100:
+        raise AssertionError("bdpt: caustics' K3 and K2 renders disagree")
+    log("bdpt", phase_s=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def _bdpt_depth(scene, configure):
+    from lumo_tpu_torch.renderer import Renderer
+    from lumo_tpu_torch.camera import build_camera
+    r = Renderer(scene, build_camera(resolution=(1, 1),
+                                     device=scene.device))
+    if configure is not None:
+        configure(r)
+    return r._resolved_bdpt_depth()
 
 
 def main():
@@ -1570,8 +1785,10 @@ def main():
     phase_parity_kd(scene_kd, dev)
     phase_grad_kd(scene_kd, scene, parity)
     phase_render_kd_stream(scene_kd, camera)
+    phase_direct({"bvh": scene, "kdtree": scene_kd}, camera, dev)
     del scene_kd
     phase_materials(dev)
+    phase_bdpt(scene, camera, dev)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

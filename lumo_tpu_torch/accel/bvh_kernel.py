@@ -258,21 +258,23 @@ def _chunks(o, T):
 
 
 def _dense_rows(tri, o, d, t_max):
-    """Yield (ray slice, tri offset, t (R, C)) over the chunked dense test."""
+    """Yield (ray indices, tri offset, t (R, C)) over the chunked dense
+    test of the live lanes; a dead lane (t_max <= 0, or NaN) misses, as in
+    the kernel, and is left out."""
     a, b, c = tri
-    N, T = o.shape[0], a.shape[0]
-    # a dead lane (t_max <= 0, or NaN) misses, as in the kernel
-    t_max = torch.where(t_max > 0.0, t_max, 0.0)
-    kz, shear = ray_setup(d)
+    T = a.shape[0]
+    live = torch.nonzero(t_max > 0.0)[:, 0]
+    o, t_max = o[live], t_max[live]
+    kz, shear = ray_setup(d[live])
     R, C = _chunks(o, T)
-    for r0 in range(0, N, R):
-        rs = slice(r0, min(N, r0 + R))
+    for r0 in range(0, live.shape[0], R):
+        rs = slice(r0, r0 + R)
         for c0 in range(0, T, C):
             cs = slice(c0, min(T, c0 + C))
             t, _, _ = triangle_t(o[rs], kz[rs], shear[rs], a[None, cs],
                                  b[None, cs], c[None, cs], 0.0,
                                  t_max[rs, None])
-            yield rs, c0, t
+            yield live[rs], c0, t
 
 
 def closest_hit_plain(bvh, tri, o, d, t_max=INF):

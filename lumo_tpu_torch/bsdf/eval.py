@@ -9,8 +9,9 @@ present are evaluated masked; results select by kind tag.  Which
 families are built is decided on the host from the scene's set of kinds
 (``kinds_present``), as the JAX package decides it at trace time.
 
-Transport mode: RADIANCE.  IMPORTANCE serves the bidirectional
-integrator and raises with its ROADMAP item.
+Transport mode: RADIANCE, or IMPORTANCE for the light subpaths of the
+bidirectional integrator; they differ only in the refraction's
+eta_ratio^2 scale, which radiance alone carries.
 
 Differentiability, as in the JAX package: sampled directions and discrete
 choices are detached; f and pdf stay differentiable in every float leaf
@@ -32,7 +33,6 @@ from lumo_tpu_torch.sampling import maps
 from lumo_tpu_torch.scene.materials import (BLANK, LAMBERTIAN, LIGHT,
                                             MF_CONDUCTOR, MF_DIELECTRIC,
                                             MF_DIFFUSE, VOLUMETRIC)
-from lumo_tpu_torch.scene.scene import _not_ported
 
 PI = math.pi
 _TINY = 1e-30
@@ -45,12 +45,6 @@ DELTA_EPS = 1e-5      # 1 - cos(theta_h) tolerance for delta pdf checks
 def kinds_present(kind_tbl) -> frozenset:
     """The set of material kinds in a kind table (host copy)."""
     return frozenset(int(k) for k in torch.unique(kind_tbl.cpu()).tolist())
-
-
-def _check_mode(mode):
-    if mode != RADIANCE:
-        raise _not_ported("IMPORTANCE transport (bidirectional path "
-                          "tracing)", 8)
 
 
 def dispersive_mask(materials: dict, mat):
@@ -198,8 +192,7 @@ def _hg_pdf(mp, wo_w, wi_w):
 def f_pdf(mp, wo_w, wi_w, ng, ns, backface, lam, mode=RADIANCE):
     """(BSDF value (N, 4), pdf (N,)) for the direction pair (wo_w, wi_w)
     (reference ``bxdf.rs:69-103,135-151``); only the families present
-    are built."""
-    _check_mode(mode)
+    are built.  ``mode`` is RADIANCE or IMPORTANCE (a Python int)."""
     reflection = dot(ng, wi_w) * dot(ng, wo_w) >= 0.0
     wo = onb.to_local(ns, wo_w)
     wi = onb.to_local(ns, wi_w)
@@ -270,7 +263,10 @@ def f_pdf(mp, wo_w, wi_w, ng, ns, backface, lam, mode=RADIANCE):
         fr_t = mf.fresnel(dot(wo, wh_t)[..., None], mp["eta4"], mp["k4"])
         wh_tp = torch.where(onb.cos_theta(wh_t)[..., None] < 0.0, -wh_t,
                             wh_t)
-        scale = eta_ratio ** 2              # RADIANCE transport
+        # radiance is scaled by eta_ratio^2 across the interface,
+        # importance is not (``lumo_tpu/bsdf/eval.py:296``)
+        scale = eta_ratio ** 2 if mode == RADIANCE \
+            else torch.ones_like(eta_ratio)
         f_die_refl = torch.where(die_delta[..., None],
                                  mp["ks"] * fr_t / abs_ci[..., None],
                                  mp["ks"] * refl_coeff)

@@ -7,10 +7,12 @@ covers the whole image times a sample sub-batch; ``render`` iterates it and
 scatter-adds into a film that stays on the scene's device.  ``.stream()``
 renders through the persistent wavefront instead
 (``path_trace.integrate_stream``), folding each terminated lane into the
-film and the per-pixel stats.  The path integrator is ported, in both
-modes, on one device; the direct-light and bidirectional integrators and
-rendering over several devices raise with the number of their item in
-``ROADMAP.md``.
+film and the per-pixel stats (path integrator only).  The path,
+direct-light and bidirectional integrators are ported, on one device;
+rendering over several devices raises with the number of its item in
+``ROADMAP.md``.  The bidirectional integrator's light-traced samples (its
+t = 1 strategies) land at raster coordinates of their own, in the film's
+splat buffer.
 
 Every random draw of ``work`` is a counter hash of (pixel, sample index,
 seed), so a render is a pure function of its configuration and needs no
@@ -26,14 +28,20 @@ from lumo_tpu_torch import film as film_mod
 from lumo_tpu_torch.camera import Camera
 from lumo_tpu_torch.color import space as space_mod
 from lumo_tpu_torch.color import wavelength
-from lumo_tpu_torch.integrators import path_trace
+from lumo_tpu_torch.integrators import bdpt, direct_light, path_trace
 from lumo_tpu_torch.sampling import samplers
 from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _mul32, _randfloat
+from lumo_tpu_torch.scene.materials import MF_DIELECTRIC
 from lumo_tpu_torch.scene.scene import SceneData, _not_ported
 
 PATH_TRACE = "path"
 DIRECT_LIGHT = "direct"
 BD_PATH_TRACE = "bdpt"
+# lanes x subpath depth of one automatic BDPT step: at its peak a depth-d
+# step holds about 2.3 KB a lane for each vertex (the general strategies
+# of one s run d - 1 lanes wide; ``tools/bdpt_memory.py``), so this keeps
+# a step near 14.5 GB, where 2M lanes at depth 12 would take 55 GB
+BDPT_LANE_VERTICES = 6 * 2 ** 20
 
 
 class Renderer:
@@ -59,6 +67,7 @@ class Renderer:
         self._delta = None  # None: adaptive RR (task.rs:42-53); float: fixed
         self._stream = False  # persistent wavefront instead of batches
         self._debug = False  # paint NaN/neg/huge radiance (tone_mapping.rs:42-56)
+        self._bdpt_depth = None  # max vertices per BDPT subpath (auto)
 
     # fluent config (mirrors reference ``renderer.rs:66-99``)
     def samples(self, n):
@@ -66,9 +75,7 @@ class Renderer:
         return self
 
     def integrator(self, name):
-        if name in (DIRECT_LIGHT, BD_PATH_TRACE):
-            raise _not_ported(f"the {name!r} integrator", 8)
-        if name != PATH_TRACE:
+        if name not in (PATH_TRACE, DIRECT_LIGHT, BD_PATH_TRACE):
             raise ValueError(f"unknown integrator {name}")
         self._integrator = name
         return self
@@ -117,7 +124,18 @@ class Renderer:
         return self
 
     def bdpt_depth(self, n):
-        raise _not_ported("the 'bdpt' integrator", 8)
+        """Maximum vertices per BDPT subpath; by default 12 where the
+        scene has a specular dielectric (caustics through glass need long
+        specular chains), else ``bdpt.MAX_VERTS``."""
+        self._bdpt_depth = int(n)
+        return self
+
+    def _resolved_bdpt_depth(self):
+        if self._bdpt_depth is not None:
+            return self._bdpt_depth
+        m = self.scene.materials
+        glass = (m["kind"] == MF_DIELECTRIC) & m["is_specular"]
+        return 12 if bool(glass.any()) else bdpt.MAX_VERTS
 
     def stream(self, on=True):
         """Persistent-wavefront mode: terminated lanes pick up fresh
@@ -140,8 +158,14 @@ class Renderer:
         if self._batch is not None:
             return max(1, min(self._batch, self._samples))
         w, h = self.camera.resolution
-        # target ~2M rays per step
-        per = max(1, int(2_000_000 / max(w * h, 1)))
+        # target ~2M rays per step; a BDPT lane holds buffers for every
+        # vertex of its subpaths, so its steps hold lanes x depth under
+        # BDPT_LANE_VERTICES instead
+        target = 2_000_000
+        if self._integrator == BD_PATH_TRACE:
+            target = min(target,
+                         BDPT_LANE_VERTICES // self._resolved_bdpt_depth())
+        per = max(1, int(target / max(w * h, 1)))
         return max(1, min(per, self._samples))
 
     def _sample_gen(self, total_spp):
@@ -229,26 +253,64 @@ class Renderer:
 
         return fold
 
+    def _make_splat(self):
+        """splat(film, raster (R, N, 2), color (R, N, 4), mask (R, N),
+        lam (N, 4)): tone-map the BDPT's light-traced samples and scatter
+        them into ``film``'s splat buffer, in place; ``lam`` broadcasts
+        across axis 0 (the layout of ``bdpt.integrate``'s splats)."""
+        w, h = self.camera.resolution
+        wbm = film_mod.wb_matrix(self._colorspace, self._illuminant)
+        filt, tone_kind, tone_arg = self._filter, self._tone_map, self._tone_arg
+        debug = self._debug
+
+        def splat(film, raster, color, mask, lam):
+            lam_s = lam.expand((raster.shape[0],) + lam.shape).reshape(-1, 4)
+            color = film_mod.tone_map(tone_kind, color.reshape(-1, 4), lam_s,
+                                      tone_arg, debug=debug)
+            rgb = film_mod.spectral_to_rgb(color, lam_s, wbm)
+            film_mod.add_samples(film, filt, raster.reshape(-1, 2), rgb,
+                                 (w, h), splat=True, mask=mask.reshape(-1))
+
+        return splat
+
     def _make_work(self, spp_batch, total_spp):
         """Build work(ray_ids, sample_base, stats) -> (film_partial,
-        stats_partial, rays): the per-ray render function.  ray_ids index
-        the (spp_batch x n_pix) wavefront; all randomness is a counter
-        hash of (pixel, sample index, seed), so any partition of ray_ids
-        produces the same image."""
-        scene = self.scene
-        w, h = self.camera.resolution
+        stats_partial, rays): the per-ray render function of the chosen
+        integrator.  ray_ids index the (spp_batch x n_pix) wavefront; all
+        randomness is a counter hash of (pixel, sample index, seed), so
+        any partition of ray_ids produces the same image."""
+        scene, camera = self.scene, self.camera
+        w, h = camera.resolution
         n_pix = w * h
         gen = self._sample_gen(total_spp)
         fold = self._make_fold()
+        kind = self._integrator
+        if kind == BD_PATH_TRACE:
+            depth_b = self._resolved_bdpt_depth()
+            splat = self._make_splat()
 
         def work(ray_ids, sample_base, stats):
             smp = gen(ray_ids + int(sample_base) * n_pix)
-            radiance, lam_out, depth = path_trace.integrate(
-                scene, smp["o"], smp["d"], smp["lam"], ray_key=smp["rng"],
-                delta=self._delta_of(stats, smp["pix"]))
+            o, d, lam, key = smp["o"], smp["d"], smp["lam"], smp["rng"]
             film_p = film_mod.new_film((w, h), device=scene.device)
+            if kind == DIRECT_LIGHT:
+                radiance, lam_out, depth = direct_light.integrate(
+                    scene, o, d, lam, ray_key=key)
+            elif kind == BD_PATH_TRACE:
+                radiance, lam_out, sr, sc, sm, depth = bdpt.integrate(
+                    scene, camera, o, d, lam, ray_key=key,
+                    delta=self._delta_of(stats, smp["pix"]),
+                    max_verts=depth_b)
+            else:
+                radiance, lam_out, depth = path_trace.integrate(
+                    scene, o, d, lam, ray_key=key,
+                    delta=self._delta_of(stats, smp["pix"]))
             stats_p, rays = fold(film_p, self.new_stats(n_pix), smp,
                                  radiance, lam_out, depth)
+            if kind == BD_PATH_TRACE:
+                # light-traced samples land at their own raster coordinates
+                # (reference ``film/tile.rs:96-111``)
+                splat(film_p, sr, sc, sm, lam_out)
             return film_p, stats_p, rays
 
         return work
@@ -305,6 +367,8 @@ class Renderer:
     def render(self, verbose=True):
         """Render and return the linear-RGB image (H, W, 3) numpy array."""
         if self._stream:
+            if self._integrator != PATH_TRACE:
+                raise ValueError("stream mode supports the path integrator")
             return self._render_stream(verbose)
         w, h = self.camera.resolution
         spp_batch = self._auto_batch()

@@ -1,4 +1,4 @@
-"""Warps from the unit square to disks and hemispheres.
+"""Warps from the unit square to disks, hemispheres and the sphere.
 
 Counterpart of ``lumo_tpu/sampling/maps.py`` (reference ``maps.rs``);
 u is (..., 2)."""
@@ -37,3 +37,11 @@ def square_to_cos_hemisphere(u):
     d = square_to_disk(u)
     z = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return torch.cat([d, z[..., None]], dim=-1)
+
+
+def square_to_sphere(u):
+    """Uniform point on the unit sphere (reference ``maps.rs``)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

@@ -121,6 +121,55 @@ class SceneData:
                 repl[name] = {k: mv(v) for k, v in getattr(self, name).items()}
         return SceneData(**repl)
 
+    def rebuild_light_alias(self) -> "SceneData":
+        """The same scene with the light-selection pdf and Walker alias
+        table recomputed from the current material table (host-side,
+        numpy; ``lumo_tpu/scene/scene.py:109-160``).  ``build`` bakes the
+        selection from the initial emission; after ``ke``, ``emit_scale``
+        or ``illum`` change (``dataclasses.replace``) the estimator stays
+        unbiased, since ``sample_light`` returns the pdf it used, but its
+        variance no longer follows the powers until this is called."""
+        from lumo_tpu_torch.color import dense as dense_mod
+        L = self.n_lights
+        if L == 0:
+            return self
+        m = {k: self.materials[k].detach().cpu().numpy()
+             for k in ("ke", "illum", "emit_scale", "two_sided", "kind")}
+        lam = 360.0 + 5.0 * np.arange(m["illum"].shape[1])
+        x = (lam[None, :] - 360.0) / 470.0
+        t = m["ke"][:, 0:1] * x * x + m["ke"][:, 1:2] * x + m["ke"][:, 2:3]
+        ke = m["ke"][:, 3:4] * (0.5 + t / (2.0 * np.sqrt(1.0 + t * t)))
+        phi = (np.sum(ke * m["illum"] * dense_mod.table("Y")[None, :], axis=1)
+               * dense_mod.STEP / dense_mod.Y_INTEGRAL)
+        phi = phi * m["emit_scale"] * np.where(m["two_sided"], 2.0, 1.0)
+        phi = np.where(m["kind"] == LIGHT, phi, 0.0)
+
+        host = lambda v: v.detach().cpu().numpy()
+        T, S = self.n_tris, self.n_spheres
+        areas = np.zeros(L)
+        mats = np.zeros(L, np.int64)
+        for i, p in enumerate(host(self.light_prim)):
+            if p < T:
+                a, b, c = (host(v[p]) for v in (self.tri_a, self.tri_b,
+                                                self.tri_c))
+                areas[i] = 0.5 * np.linalg.norm(np.cross(b - a, c - a))
+                mats[i] = int(self.tri_mat[p])
+            elif p < T + S:
+                r = float(self.sph_radius[p - T])
+                areas[i] = 4.0 * np.pi * r * r
+                mats[i] = int(self.sph_mat[p - T])
+            else:
+                r = float(self.ana_radius[p - T - S])
+                areas[i] = np.pi * r * r
+                mats[i] = int(self.ana_mat[p - T - S])
+        pdf, accept, alias = _build_alias(areas * phi[mats])
+        tens = lambda a, like: torch.as_tensor(a, dtype=like.dtype,
+                                               device=like.device)
+        return dataclasses.replace(
+            self, light_pdf=tens(pdf, self.light_pdf),
+            alias_p=tens(accept, self.alias_p),
+            alias_idx=tens(alias, self.alias_idx))
+
 
 def _empty_tri_chunk():
     return {

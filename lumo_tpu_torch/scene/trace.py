@@ -33,7 +33,7 @@ from lumo_tpu_torch import texture as texture_mod
 from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
 from lumo_tpu_torch.accel.walk import rows
 from lumo_tpu_torch.color import dense, uplift
-from lumo_tpu_torch.config import INF, LAMBDA_MAX, LAMBDA_MIN
+from lumo_tpu_torch.config import INF, LAMBDA_MAX, LAMBDA_MIN, gamma_bound
 from lumo_tpu_torch.geometry import analytic
 from lumo_tpu_torch.geometry import intersect as geo
 from lumo_tpu_torch.geometry import onb
@@ -373,11 +373,11 @@ def sample_light(scene: SceneData, u):
     return light, scene.light_pdf[light]
 
 
-def _light_geom(scene: SceneData, light):
+def _light_geom(scene: SceneData, light, normals=False):
     """The chosen lights' primitive data: each present family's gathered
-    rows and, where more than one family is present, the family masks
-    ``is_tri``, ``is_sph``, ``is_ana`` that :func:`_merge_fams` selects
-    by."""
+    rows (with ``normals`` also the triangles' vertex normals) and, where
+    more than one family is present, the family masks ``is_tri``,
+    ``is_sph``, ``is_ana`` that :func:`_merge_fams` selects by."""
     prim = scene.light_prim[light]
     T, S, A = scene.n_tris, scene.n_spheres, scene.n_ana_lights
     g = {"prim": prim}
@@ -395,6 +395,9 @@ def _light_geom(scene: SceneData, light):
         tidx = rows(0, T)
         g.update(a=scene.tri_a[tidx], b=scene.tri_b[tidx],
                  c=scene.tri_c[tidx], mat_tri=scene.tri_mat[tidx])
+        if normals:
+            g.update(na=scene.tri_na[tidx], nb=scene.tri_nb[tidx],
+                     nc=scene.tri_nc[tidx])
     if S:
         sidx = rows(T, S)
         g.update(center=scene.sph_center[sidx], radius=scene.sph_radius[sidx],
@@ -488,6 +491,62 @@ def light_area(scene: SceneData, light):
         g, 0.5 * norm(cross(g["b"] - g["a"], g["c"] - g["a"])) if ht else None,
         4.0 * PI * g["radius"] ** 2 if hs else None,
         PI * g["ana_radius"] ** 2 if ha else None)
+
+
+def sample_on(scene: SceneData, light, u):
+    """Uniform points on light ``light`` from u (N, 2): sqrt-warped
+    barycentrics on a triangle with its interpolated shading normal
+    (reference ``triangle.rs:48-60,215-241``), a uniform point on a sphere
+    (``sphere.rs:111-130``) or a disk (``disk.rs:140-156``).  Returns
+    (p, ng, ns, err, mat)."""
+    g = _light_geom(scene, light, normals=True)
+    ht, hs, ha = _families(scene)
+    fam = {}
+    if ht:
+        gamma = 1.0 - torch.sqrt(torch.clamp(1.0 - u[..., 0], min=0.0))
+        beta = u[..., 1] * (1.0 - gamma)
+        e1 = g["b"] - g["a"]
+        e2 = g["c"] - g["a"]
+        p = g["a"] + beta[..., None] * e1 + gamma[..., None] * e2
+        ng = normalize(cross(e1, e2))
+        alpha = 1.0 - beta - gamma
+        ns_raw = (alpha[..., None] * g["na"] + beta[..., None] * g["nb"]
+                  + gamma[..., None] * g["nc"])
+        has_ns = dot(ns_raw, ns_raw) > 1e-12
+        ns = torch.where(has_ns[..., None], normalize(ns_raw, eps=1e-30), ng)
+        err = gamma_bound(6) * (torch.abs(g["a"])
+                                + torch.abs(beta[..., None] * e1)
+                                + torch.abs(gamma[..., None] * e2))
+        fam["tri"] = (p, ng, ns, err, g["mat_tri"])
+    if hs:
+        sph = maps.square_to_sphere(u)
+        p = g["center"] + sph * g["radius"][..., None]
+        fam["sph"] = (p, sph, sph, gamma_bound(5) * torch.abs(p),
+                      g["mat_sph"])
+    if ha:
+        p = _disk_point(g, u)
+        ng = g["ana_rot"][..., 2, :]     # rot^T e_z: the disk's normal
+        fam["ana"] = (p, ng, ng, gamma_bound(5) * torch.abs(p), g["mat_ana"])
+    return tuple(_merge_fams(g, *(fam[k][i] if k in fam else None
+                                  for k in ("tri", "sph", "ana")))
+                 for i in range(5))
+
+
+def sample_leaving(scene: SceneData, light, u0, u1):
+    """A ray leaving light ``light``: a uniform point (:func:`sample_on`,
+    uniforms u0) and a cosine-weighted direction about its shading normal
+    (u1) (reference ``object.rs:104-117``).  Returns (p, d, ng, ns, err,
+    mat)."""
+    p, ng, ns, err, mat = sample_on(scene, light, u0)
+    d = onb.to_world(ns, maps.square_to_cos_hemisphere(u1))
+    return p, normalize(d), ng, ns, err, mat
+
+
+def sample_leaving_pdf(scene: SceneData, light, d, ng):
+    """(pdf_origin, pdf_dir) of :func:`sample_leaving`: 1 / area and
+    cos / pi, unclamped (reference ``object.rs:119-127``)."""
+    pdf_origin = 1.0 / torch.clamp(light_area(scene, light), min=1e-30)
+    return pdf_origin, dot(ng, d) / PI
 
 
 def _finite(t):

@@ -120,7 +120,8 @@ def t(x):
 # same calls as its program; meshes the programs load from ``scenes/`` are
 # their procedural stand-in blobs
 
-EXAMPLES = ("dragon", "dof", "medium", "circle", "nefertiti", "conference")
+EXAMPLES = ("dragon", "dof", "medium", "circle", "nefertiti", "conference",
+            "box", "caustics", "cornell")
 
 
 def _blob_mesh(pkg, subdiv, seed, amp):
@@ -237,6 +238,27 @@ def example_scene(pkg, name, res):
         sb.add_sphere((900.0, 300.0, -600.0), 10.0, Material.light(np.ones(4)))
         cam = dict(origin=(-50.0, 400.0, -350.0), towards=(500.0, 0.0, 250.0))
         return sb, cam, "build_camera", None
+    if name in ("box", "caustics"):
+        magenta = uplift.from_srgb8(255, 0, 255).reshape(4)
+        cyan = uplift.from_srgb8(0, 255, 255).reshape(4)
+        sb = mod("scene.cornell").empty_box(
+            uplift.from_srgb8(242, 242, 242).reshape(4),
+            Material.diffuse(magenta), Material.diffuse(cyan))
+        if name == "box":
+            sb.add_sphere((-0.45, -0.5, -1.5), 0.25, Material.mirror())
+            sb.add_sphere((0.45, -0.5, -1.3), 0.25, Material.glass())
+            return sb, cam, "build_camera", None
+        suzanne = _blob_mesh(pkg, 4, 7, 0.15).to_unit_size()
+        (suzanne.clone().to_origin().rotate_y(-PI / 8).rotate_z(PI / 8)
+         .rotate_x(-PI / 8).translate(0.5, -0.3, -1.0)
+         .add_to(sb, Material.mirror()))
+        (suzanne.clone().to_origin().rotate_y(PI / 8).rotate_z(-PI / 8)
+         .rotate_x(PI / 16).translate(-0.35, 0.25, -1.25)
+         .add_to(sb, Material.glass()))
+        return sb, dict(origin=(0.0, 0.0, 2.0), zoom=3.0), "build_camera", None
+    if name == "cornell":
+        return (mod("scene.cornell").cornell_box(), cam, "cornell_camera",
+                "CORNELL")
     raise ValueError(name)
 
 
@@ -250,12 +272,15 @@ def _column_t_max(fn):
     return call
 
 
-def render_example(name, accel, res, jax_eager=False):
+def render_example(name, accel, res, jax_eager=False, integrator="path",
+                   configure=None):
     """``example``'s image from the JAX Renderer and from the port's, both
     at ``res``^2, 1 sample per pixel, fixed Russian-roulette threshold 1
     and the square pixel filter, so that each pixel is one sample's
-    radiance.  ``jax_eager`` runs the JAX package op by op
-    (``jax.disable_jit``).
+    radiance (with ``integrator="bdpt"`` plus the splats that land on
+    it).  ``jax_eager`` runs the JAX package op by op
+    (``jax.disable_jit``); ``configure(renderer, film_module)``, when
+    given, configures both renderers further.
 
     The JAX package's BVH and kd branches of ``trace._closest`` pass a
     1-D t_max to ``sphere_t`` and ``analytic_t``, which broadcast it
@@ -289,6 +314,11 @@ def render_example(name, accel, res, jax_eager=False):
     if illuminant:
         jr.illuminant(illuminant)
         tr.illuminant(illuminant)
+    jr.integrator(integrator)
+    tr.integrator(integrator)
+    if configure is not None:
+        configure(jr, jfilm)
+        configure(tr, tfilm)
     with (jax.disable_jit() if jax_eager else contextlib.nullcontext()), \
             mock.patch.object(jan, "analytic_t",
                               _column_t_max(jan.analytic_t)), \

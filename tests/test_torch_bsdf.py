@@ -125,8 +125,8 @@ def test_dispersive_mask_is_empty_for_ported_kinds(case):
 
 def test_unported_kinds_raise():
     """Glass gathers (slice 5) and matches the JAX package; IMPORTANCE
-    transport, which waits for the bidirectional integrator, raises with
-    its ROADMAP item."""
+    transport, once a raise, evaluates the glass as the JAX package does
+    (the bidirectional integrator's light subpaths)."""
     from lumo_tpu_torch.config import IMPORTANCE
     mats = {k: torch.as_tensor(v) for k, v in tmat.pack_materials(
         [tmat.Material.glass()]).items()}
@@ -144,8 +144,13 @@ def test_unported_kinds_raise():
         np.testing.assert_allclose(mp[k].numpy(), np.asarray(mp_j[k]),
                                    rtol=RTOL, err_msg=k)
     assert bool(mp["is_delta"].all()) and not bool(mp["eta_const"].any())
-    w = torch.tensor([[0.0, 0.6, 0.8]] * 4)
-    n = torch.tensor([[0.0, 0.0, 1.0]] * 4)
-    with pytest.raises(NotImplementedError, match="item 8\\)"):
-        tbsdf.f_pdf(mp, w, -w, n, n, torch.zeros(4, dtype=torch.bool),
-                    torch.as_tensor(lam), mode=IMPORTANCE)
+    w = np.array([[0.0, 0.6, 0.8]] * 4, np.float32)
+    n = np.array([[0.0, 0.0, 1.0]] * 4, np.float32)
+    back = np.zeros(4, bool)
+    f_t, p_t = tbsdf.f_pdf(mp, *(torch.as_tensor(x) for x in (
+        w, -w, n, n, back, lam)), mode=IMPORTANCE)
+    f_j, p_j = jbsdf.f_pdf(mp_j, *(jnp.asarray(x) for x in (
+        w, -w, n, n, back, lam)), IMPORTANCE)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=RTOL)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=RTOL)
+    assert (p_t.numpy() > 0).all() and (f_t.numpy() > 0).all()

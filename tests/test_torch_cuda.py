@@ -207,6 +207,35 @@ def test_kd_render_through_kernel_matches_plain(card):
     assert float(img_k.mean()) > 0.01
 
 
+@pytest.mark.parametrize("accel", ["bvh", "kdtree"])
+@pytest.mark.parametrize("integrator", ["direct", "bdpt"])
+def test_direct_and_bdpt_through_kernel_match_plain(card, accel, integrator):
+    """The direct-light and bidirectional integrators through the
+    Renderer with K2 or K3 and with the plain versions: the same image but
+    for the order of the film's atomic adds.  BDPT's light subpaths,
+    connection rays and dead lanes (t_max 0) go through the kernels."""
+    from lumo_tpu_torch import film
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.renderer import Renderer
+    mod = kd_kernel if accel == "kdtree" else bvh_kernel
+    scene = blob_box("lumo_tpu_torch", 2).build(accel=accel, device=card)
+    cam = build_camera(resolution=(24, 24), device=card)
+
+    def frame():
+        return (Renderer(scene, cam).integrator(integrator).samples(1)
+                .fixed_rr_delta(1.0).pixel_filter(film.PixelFilter.square())
+                .render(verbose=False))
+
+    before = dict(mod.LAUNCHES)
+    img_k = frame()
+    assert all(mod.LAUNCHES[k] > before[k] for k in ("closest", "any"))
+    with mock.patch.object(mod, "closest_hit", mod.closest_hit_plain), \
+            mock.patch.object(mod, "any_hit", mod.any_hit_plain):
+        img_p = frame()
+    np.testing.assert_allclose(img_k, img_p, rtol=1e-5, atol=1e-6)
+    assert np.isfinite(img_k).all() and float(img_k.mean()) > 0.01
+
+
 # the traversal kernels at the edges of their ray scheduling: no ray,
 # fewer rays than a warp, a ragged last warp, dead lanes (t_max 0, -1 and
 # NaN), and more rays than the card holds resident threads

@@ -12,6 +12,17 @@ sin(60 u + 20 turbulence))^6 on triangles 0.02 wide, turns that into up
 to 1% of a pixel; 3% of dof's pixels land between 1e-3 and 1e-2 (the
 JAX package run op by op gives the same share).
 
+The ulp was traced to the camera's (N, 3) @ (3, 3) products
+(``to_world_pt``, ``to_world_dir``), and no evaluation order of the port
+reproduces the JAX package's: XLA's CPU dot for this shape sums column 0
+of dof's rays as rounded products (no fused multiply-add) and column 2
+as a fused multiply-add chain, while torch's CPU matmul (and an explicit
+three-term sum in either form) takes one rule for every column; and the
+JAX package's jitted ``generate_ray`` disagrees with its own op-by-op one
+on 3.2% of the origins and 17% of the directions of 4,096 dof rays,
+because the rounding follows XLA's fusion.  So 95% stays the rule for
+dof.
+
 ``nefertiti`` stops in the JAX package: its tree branch of
 ``trace._closest`` hands ``analytic_t`` a 1-D t_max, a shape error
 (ROADMAP.md section 3); ``render_example`` passes it as a column for the

@@ -6,8 +6,9 @@ Henyey-Greenstein media, and kd/tf from textures, through
 ``gather_params``, ``sample``, ``f_pdf``, ``pdf`` and ``shading_cosine``
 (rtol 1e-5, atol 1e-6 on every lane; 1e-4 for the BSDF values of the
 marble-textured glass, whose (0.5 + 0.5 sin(60 u + 20 turb))^6 turns an
-ulp of the sine's argument into some 1e-5 of the value).  IMPORTANCE
-transport raises with its ROADMAP item."""
+ulp of the sine's argument into some 1e-5 of the value), under RADIANCE
+and IMPORTANCE transport; the BDPT's shading correction of importance
+transport too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ from lumo_tpu.color import wavelength as jwl
 from lumo_tpu.scene import materials as jmat
 from lumo_tpu_torch import texture as ttex
 from lumo_tpu_torch.bsdf import eval as tbsdf
-from lumo_tpu_torch.config import IMPORTANCE
+from lumo_tpu_torch.config import IMPORTANCE, RADIANCE
+from lumo_tpu_torch.integrators import bdpt as tbdpt
 from lumo_tpu_torch.scene import materials as tmat
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -144,21 +146,24 @@ def test_sample(case):
     assert crossed[die].mean() > 0.2
 
 
-@pytest.mark.parametrize("which", ["random", "sampled"])
-def test_f_pdf_and_pdf(case, which):
+@pytest.mark.parametrize("which,mode", [
+    ("random", RADIANCE), ("sampled", RADIANCE), ("random", IMPORTANCE),
+    ("sampled", IMPORTANCE)],
+    ids=["random", "sampled", "random-importance", "sampled-importance"])
+def test_f_pdf_and_pdf(case, which, mode):
     mp_j, mp_t, h = case
     wi = h["wi"] if which == "random" else _sampled_wi(mp_j, h)
     hh = dict(h, wi=wi)
     a_j, a_t = _args(hh, ("wo", "wi", "ng", "ns", "backface", "lam"))
-    f_j, p_j = (np.asarray(x) for x in jbsdf.f_pdf(mp_j, *a_j))
-    f_t, p_t = tbsdf.f_pdf(mp_t, *a_t)
+    f_j, p_j = (np.asarray(x) for x in jbsdf.f_pdf(mp_j, *a_j, mode))
+    f_t, p_t = tbsdf.f_pdf(mp_t, *a_t, mode)
     assert (p_j > 0).sum() > N // 4
     np.testing.assert_allclose(p_t.numpy(), p_j, rtol=RTOL, atol=ATOL)
     marble = h["mat"] == 8
     for sel, rtol in ((~marble, RTOL), (marble, 1e-4)):
         np.testing.assert_allclose(f_t.numpy()[sel], f_j[sel], rtol=rtol,
                                    atol=ATOL)
-    assert torch.equal(tbsdf.f(mp_t, *a_t), f_t)
+    assert torch.equal(tbsdf.f(mp_t, *a_t, mode), f_t)
     b_j, b_t = _args(hh, ("wo", "wi", "ng", "ns", "lam"))
     pdf_j = np.asarray(jbsdf.pdf(mp_j, *b_j))
     np.testing.assert_allclose(tbsdf.pdf(mp_t, *b_t).numpy(), pdf_j,
@@ -171,7 +176,27 @@ def test_f_pdf_and_pdf(case, which):
 
 
 def test_importance_transport_raises(case):
-    _, mp_t, h = case
-    _, a_t = _args(h, ("wo", "wi", "ng", "ns", "backface", "lam"))
-    with pytest.raises(NotImplementedError, match="item 8\\)"):
-        tbsdf.f_pdf(mp_t, *a_t, mode=IMPORTANCE)
+    """IMPORTANCE transport, once a raise, differs from RADIANCE exactly
+    where a dielectric refracts: radiance carries the eta_ratio^2 scale,
+    importance does not (``lumo_tpu/bsdf/eval.py:296``); the pdfs are the
+    same.  The BDPT's shading correction (``bdpt._shading_correction``)
+    matches the JAX package's."""
+    from lumo_tpu.integrators import bdpt as jbdpt
+    mp_j, mp_t, h = case
+    wi = _sampled_wi(mp_j, h)
+    _, a_t = _args(dict(h, wi=wi), ("wo", "wi", "ng", "ns", "backface",
+                                    "lam"))
+    f_r, p_r = tbsdf.f_pdf(mp_t, *a_t, mode=RADIANCE)
+    f_i, p_i = tbsdf.f_pdf(mp_t, *a_t, mode=IMPORTANCE)
+    assert torch.equal(p_r, p_i)
+    refract = (np.sum(wi * h["ng"], -1) * np.sum(h["wo"] * h["ng"], -1)) < 0
+    die = np.isin(h["mat"], (0, 1, 2, 4, 8))
+    differs = (f_r != f_i).any(-1).numpy()
+    assert not differs[~(refract & die)].any()
+    assert differs[refract & die].mean() > 0.5
+    v_j = {k: jnp.asarray(h[k]) for k in ("wo", "ng", "ns")}
+    v_t = {k: t(h[k]) for k in ("wo", "ng", "ns")}
+    c_j = np.asarray(jbdpt._shading_correction(mp_j, v_j, jnp.asarray(wi)))
+    c_t = tbdpt._shading_correction(mp_t, v_t, t(wi)).numpy()
+    np.testing.assert_allclose(c_t, c_j, rtol=RTOL, atol=ATOL)
+    assert (np.abs(c_j - 1.0) > 1e-3).mean() > 0.1

@@ -7,15 +7,17 @@ order).  ``Renderer`` images at 16x16, 4 samples per pixel in two batches,
 with the fixed and the adaptive Russian-roulette threshold, on a kd-tree
 scene and on a dense scene, agree with the JAX ``Renderer`` on one device:
 at least 99% of the pixels within rtol 1e-3 (atol 1e-6) and the image mean
-within 1e-3; the rest are paths whose topology flips by an ulp.  The modes
-that are not ported raise with their ROADMAP item (stream mode is held
-against batch mode in ``test_torch_stream.py``)."""
+within 1e-3; the rest are paths whose topology flips by an ulp.  So do
+the direct-light and bidirectional integrators, by the rule of
+``test_not_ported_modes_raise``; rendering over several devices raises
+with its ROADMAP item (stream mode is held against batch mode in
+``test_torch_stream.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import blob_box, port_scene_from_jax, t
+from _torch_port import blob_box, image_agreement, port_scene_from_jax, t
 from lumo_tpu import film as jfilm
 from lumo_tpu.camera import build_camera as jcamera
 from lumo_tpu.color import wavelength as jwl
@@ -190,15 +192,55 @@ def test_renderer_options_and_progress(scenes, capsys, tmp_path):
     assert path.stat().st_size > 0
 
 
+def test_bdpt_auto_batch_caps_lanes(scenes):
+    """The automatic step holds about 2M lanes, as the JAX Renderer's
+    does; a BDPT step holds lanes x subpath depth under
+    ``BDPT_LANE_VERTICES`` instead (its buffers grow with the depth)."""
+    js, ts = scenes["dense"]
+    jr = JRenderer(js, jcamera(resolution=(512, 512))).samples(2048)
+    r = TRenderer(ts, tcamera(resolution=(512, 512), device="cpu"))
+    assert r.samples(2048)._auto_batch() == jr._auto_batch() == 7
+    r.integrator("bdpt")
+    assert r._resolved_bdpt_depth() == 6 and r._auto_batch() == 4
+    assert r.bdpt_depth(12)._auto_batch() == 2
+    assert r.bdpt_depth(2)._auto_batch() == 7
+    assert r.samples(1)._auto_batch() == 1
+    assert trenderer.BDPT_LANE_VERTICES // 12 >= 512 * 512
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda r: r.devices(2), 11),
     (lambda r: r.integrator("direct"), 8), (lambda r: r.integrator("bdpt"), 8),
-    (lambda r: r.bdpt_depth(8), 8)])
+    (lambda r: r.integrator("bdpt").bdpt_depth(4), 8)])
 def test_not_ported_modes_raise(scenes, call, item):
-    _, ts = scenes["dense"]
+    """Rendering over several devices raises with its ROADMAP item.  The
+    modes of item 8, raises until the direct-light and bidirectional
+    integrators were ported, render the dense scene as the JAX Renderer
+    does (one sample per pixel, square filter, fixed Russian-roulette
+    threshold; the JAX Renderer jit-compiled): pixels that differ by more
+    than 1% are topology flips (at most 4%, a BDPT pixel gathers the
+    splats of other pixels' light paths), 95% of the rest within rtol
+    1e-3 and their mean within 1e-3.  Stream mode takes the path
+    integrator only."""
+    js, ts = scenes["dense"]
     r = TRenderer(ts, tcamera(resolution=RES, device="cpu"))
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        call(r)
     with pytest.raises(ValueError, match="unknown integrator"):
         r.integrator("photon")
     assert trenderer.PATH_TRACE == "path"
+    if item == 11:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            call(r)
+        return
+    jr = JRenderer(js, jcamera(resolution=RES)).devices(1)
+    for x, film in ((jr, jfilm), (r, tfilm)):
+        call(x.samples(1).seed(3).fixed_rr_delta(1.0)
+             .pixel_filter(film.PixelFilter.square()))
+    img_t = r.render(verbose=False)
+    img_j = jr.render(verbose=False)
+    assert np.isfinite(img_t).all() and img_t.mean() > 0.01
+    flips, close, rel = image_agreement(img_t, img_j)
+    assert flips <= img_t.shape[0] * img_t.shape[1] // 25, flips
+    assert close >= 0.95, close
+    assert rel <= 1e-3, rel
+    with pytest.raises(ValueError, match="stream mode supports the path"):
+        r.stream().render(verbose=False)
