@@ -30,7 +30,15 @@ paths over ``bench.py``'s scenes at 256x256:
   and K3 (``[direct]``), and the bidirectional integrator on
   ``examples/caustics.py``'s scene through K2 and K3, ``examples/box.py``'s
   (dense) and the 327,692-triangle scene through K2 (``[bdpt]``): light
-  subpaths, connection rays and dead lanes through the same kernels.
+  subpaths, connection rays and dead lanes through the same kernels;
+- runtime instancing (``[instance]``): the 327,692-triangle blob
+  registered once and instanced 3 times (one K2 query per instance) and
+  16 times (one flattened K2 query of 4,194,304 local-space rays with
+  unnormalised directions) in the empty box, through the Renderer, and
+  instance_3 against the same instances baked (983,076 triangles);
+- host I/O (``[io]``): the committed ``scenes/demo.zip`` (.obj, .mtl,
+  PNG textures, a bump map) through the port's loader and PNG decoder,
+  rendered through K2.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -519,41 +527,23 @@ def phase_render(scene, camera, dev):
 
 def phase_profile(phase, frame, span, kernel_tag):
     """One more frame under torch.profiler: the traversal kernels' device
-    time and the device's idle share over the host range ``span``.
-    ``frame()`` renders the frame and returns its wall seconds.  Reads the
-    raw Kineto events (``prof.events()`` takes a minute for the stream
-    frame's 200,000)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = frame()
-    events = list(prof.profiler.kineto_results.events())
-    card = lambda e: str(e.device_type()).endswith("CUDA")
-    interval = lambda e: (e.start_ns(), e.start_ns() + e.duration_ns())
-    window = [interval(e) for e in events if e.name() == span
-              and not card(e)]
-    # device work: kernels, copies and sets (not the range's own marker)
-    on_card = [e for e in events if card(e) and e.name() != span]
-    if not window or not on_card:
-        log(phase, device_events=len(on_card), device_time="not measured")
+    time and the device's idle share over the frame's wall
+    (:func:`traced_frame`; the profiler's annotation of the host range
+    ``span`` is not device work)."""
+    wall, on_card, read_s = traced_frame(frame, span)
+    if not on_card:
+        log(phase, device_events=0, device_time="not measured")
         return {}
-    w0, w1 = window[0]
-    spans = sorted((max(a, w0), min(b, w1)) for a, b in map(interval,
-                                                             on_card))
-    busy, end = 0, w0
-    for a, b in spans:                  # union of the device intervals
-        a = max(a, end)
-        if b > a:
-            busy, end = busy + b - a, b
     ms = lambda tag: sum(e.duration_ns() for e in on_card
                          if tag in e.name()) / 1e6
     per_frame = {"closest": ms(f"{kernel_tag}<false"),
                  "any": ms(f"{kernel_tag}<true")}
-    log(phase, wall_ms=wall * 1e3, window_ms=(w1 - w0) / 1e6,
-        device_events=len(on_card), device_busy_ms=busy / 1e6,
-        idle_share=1.0 - busy / (w1 - w0),
+    busy = busy_ns(on_card)
+    log(phase, wall_ms=wall * 1e3, device_events=len(on_card),
+        device_busy_ms=busy / 1e6, idle_share=1.0 - busy / 1e9 / wall,
         closest_ms_total=per_frame["closest"], any_ms_total=per_frame["any"],
-        kernel_launches=sum(f"{kernel_tag}<" in e.name() for e in on_card))
+        kernel_launches=sum(f"{kernel_tag}<" in e.name() for e in on_card),
+        read_s=read_s)
     return per_frame
 
 
@@ -1413,31 +1403,46 @@ def _image_parity(img_a, img_b, rtol, atol):
     return int((~close).sum()), float(err.max()) if err.size else 0.0
 
 
-def idle_share(phase, frame):
-    """The device's idle share over one more frame: the union of the
-    device intervals that ``torch.profiler`` traces (device activity
-    only, read from the raw Kineto events: building ``prof.events()``
-    for a frame of ~200,000 events takes half a minute) over the frame's
-    wall.  ``frame()`` renders it, ending synchronised, and returns its
-    wall seconds."""
+def traced_frame(frame, span=None):
+    """(wall seconds, device events, seconds to read them) of one more
+    frame under ``torch.profiler`` with device activity only, read from
+    the raw Kineto events (building ``prof.events()`` for a frame of
+    ~200,000 events takes half a minute; tracing the host's operations
+    too adds 5 to 12 s a frame).  ``frame()`` renders it, ending
+    synchronised, and returns its wall seconds; events named ``span`` (a
+    host range's annotation) are left out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = frame()
     t0 = time.perf_counter()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if str(e.device_type()).endswith("CUDA") and e.name() != span]
+    return wall, events, round(time.perf_counter() - t0, 2)
+
+
+def busy_ns(events):
+    """Nanoseconds of the union of the events' device intervals."""
     spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if str(e.device_type()).endswith("CUDA"))
-    if not spans:
-        log(phase, device_events=0, device_time="not measured")
-        return
+                   for e in events)
     busy, end = 0, spans[0][0]
-    for a, b in spans:                  # union of the device intervals
+    for a, b in spans:
         a = max(a, end)
         if b > a:
             busy, end = busy + b - a, b
-    log(phase, wall_ms=wall * 1e3, device_events=len(spans),
+    return busy
+
+
+def idle_share(phase, frame):
+    """The device's idle share over one more frame: the union of the
+    device intervals over the frame's wall (:func:`traced_frame`)."""
+    wall, events, read_s = traced_frame(frame)
+    if not events:
+        log(phase, device_events=0, device_time="not measured")
+        return
+    busy = busy_ns(events)
+    log(phase, wall_ms=wall * 1e3, device_events=len(events),
         device_busy_ms=busy / 1e6, idle_share=1.0 - busy / 1e9 / wall,
-        read_s=round(time.perf_counter() - t0, 2))
+        read_s=read_s)
 
 
 def phase_materials(dev):
@@ -1544,7 +1549,8 @@ def phase_materials(dev):
 DIRECT_FRAMES = 3      # timed frames of [direct] after a warm-up
 BDPT_SPP = 1           # cut from caustics.py's 2,048 and box.py's 64 spp
 BDPT_FRAMES = 2        # timed frames per scene after a warm-up
-BDPT_BOX_FRAMES = 1    # box's, which checks no kernel
+BDPT_TWIN_FRAMES = 1   # box's (no kernel) and caustics-kd's (2 until slice 7)
+BDPT_PROFILED = ("caustics", "bench")  # idle share (all four until slice 7)
 BDPT_BENCH_DEPTH = 6
 
 
@@ -1644,9 +1650,10 @@ def phase_bdpt(bench, camera, dev):
     and as kd-tree (K3), ``examples/box.py``'s at 512^2 (dense, its wide
     Gaussian filter) and the 327,692-triangle scene at 256^2 with depth
     6 (K2); BDPT_SPP spp, BDPT_FRAMES timed frames after a warm-up
-    (BDPT_BOX_FRAMES on box): per
+    (BDPT_TWIN_FRAMES on box and caustics-kd): per
     scene rays/s, K2/K3 launches a frame, splats a frame, peak device
-    memory, the idle share of one profiled frame, finiteness.  Then at
+    memory, finiteness; the idle share of one profiled frame of
+    BDPT_PROFILED.  Then at
     64^2 (1 spp, fixed Russian-roulette threshold, square filter) the K2
     images against the plain-routed ones and caustics' K3 image against
     its K2 image (rtol 1e-5, atol 1e-6, flips counted)."""
@@ -1679,8 +1686,10 @@ def phase_bdpt(bench, camera, dev):
                                          configure=conf)
         launches[name] = _timed_frames(
             "bdpt", name, accel, frame,
-            BDPT_BOX_FRAMES if name == "box" else BDPT_FRAMES, res)
-        idle_share(f"bdpt-profile-{name}", lambda: frame()[2])
+            BDPT_TWIN_FRAMES if name in ("box", "caustics-kd")
+            else BDPT_FRAMES, res)
+        if name in BDPT_PROFILED:
+            idle_share(f"bdpt-profile-{name}", lambda: frame()[2])
         if accel == "dense":
             del scene
             continue
@@ -1714,6 +1723,223 @@ def _bdpt_depth(scene, configure):
     if configure is not None:
         configure(r)
     return r._resolved_bdpt_depth()
+
+
+# ---------------------------------------------------------------------------
+# slice 7: runtime instancing and the .obj/.mtl/PNG loaders
+
+INST_FRAMES = 2        # timed frames per scene after a warm-up
+INST_PARITY_RES = 32   # kernel- against plain-routed: the plain test is dense
+INST_DEFAULT_SPP = 30  # one Renderer step at its 2,000,000-lane target
+IO_FRAMES = 2
+
+
+def instance_transforms(n):
+    """The instances of ``[instance]`` (PERF.md section 4), each placing
+    the unit-size blob centred at the origin on the box's floor (y = -0.8):
+    n = 3, three at half size side by side, each turned about y; n = 16, a
+    4 x 4 grid over the floor, instance i turned by 0.4 i about y and
+    scaled non-uniformly."""
+    from lumo_tpu_torch.scene.instance import rotate_y, scale, translation
+    if n == 3:
+        return [translation(x, -0.799 + 0.25, z) @ rotate_y(r)
+                @ scale(0.5, 0.5, 0.5)
+                for x, z, r in ((-0.55, -1.5, 0.3), (0.0, -1.2, 1.1),
+                                (0.55, -1.5, 2.0))]
+    out = []
+    for i in range(n):
+        sx, sy, sz = 0.26 + 0.03 * (i % 3), 0.2 + 0.05 * (i % 4), \
+            0.3 - 0.03 * (i % 2)
+        out.append(translation(-0.69 + 0.46 * (i % 4), -0.799 + 0.5 * sy,
+                               -1.8 + 0.35 * (i // 4))
+                   @ rotate_y(0.4 * i) @ scale(sx, sy, sz))
+    return out
+
+
+def instance_scene(dev, n, baked=False):
+    """``bench_scene``'s blob (327,692 triangles, unit size, at the
+    origin) registered once with ``Mesh.add_instances_to`` in the empty
+    Cornell box under ``instance_transforms(n)``, materials cycling
+    diffuse, metal (roughness 0.1) and glass; with ``baked`` each instance
+    is baked with ``Mesh.add_to`` instead."""
+    from lumo_tpu_torch.scene import shapes
+    from lumo_tpu_torch.scene.cornell import empty_box
+    from lumo_tpu_torch.scene.instance import Mesh
+    from lumo_tpu_torch.scene.materials import Material
+    sb = empty_box((0.95, 0.95, 0.95), Material.diffuse((0.9, 0.1, 0.1)),
+                   Material.diffuse((0.1, 0.9, 0.1)))
+    v, f, vn = shapes.blob(subdiv=7, seed=11, amp=0.22)
+    mesh = Mesh(v, f, normals=vn).to_unit_size().to_origin()
+    kinds = (Material.diffuse((0.8, 0.8, 0.3)),
+             Material.metal((0.9, 0.7, 0.1), 0.1, 2.5, 3.0), Material.glass())
+    mats = [kinds[i % 3] for i in range(n)]
+    if baked:
+        for m, mat in zip(instance_transforms(n), mats):
+            mesh.clone().apply(m).add_to(sb, mat)
+    else:
+        mesh.add_instances_to(sb, instance_transforms(n), mats)
+    return sb.build(device=dev)
+
+
+def _instance_frames(name, scene, frame, n_inst):
+    """A warm-up frame and INST_FRAMES timed ones (launch counts and peak
+    memory reset just before each): rays/s, bounce iterations, K2
+    launches a frame (n_inst a query per instance, 1 flattened), peak
+    bytes, finiteness.  Returns the launches of a frame."""
+    frame()
+    walls, rays, per_frame, peaks = [], [], [], []
+    for _ in range(INST_FRAMES):
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        img, r, wall, bounces, _ = frame()
+        per_frame.append(_launch_counts())
+        peaks.append(torch.cuda.max_memory_allocated())
+        if img.shape != (RES, RES, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"instance {name}: wrong shape or non-finite")
+        walls.append(wall)
+        rays.append(r)
+    launches = per_frame[0]
+    per_query = n_inst if n_inst < 5 else 1
+    if any(f != launches for f in per_frame) or launches["k3_closest"] \
+            or launches["k3_any"] or launches["k2_closest"] \
+            != per_query * bounces or launches["k2_any"] <= 0 \
+            or launches["k2_any"] % per_query:
+        raise AssertionError(f"instance {name}: launches per frame "
+                             f"{per_frame}, {bounces} bounces")
+    rate = sorted(r / w for r, w in zip(rays, walls))
+    log("instance", scene=name, res=f"{RES}x{RES}", spp=SPP,
+        frames=INST_FRAMES, warmup_frames=1,
+        wall_s=json.dumps(walls).replace(" ", ""), rays=int(rays[-1]),
+        rays_per_s_median=float(np.median(rate)), rays_per_s_min=rate[0],
+        rays_per_s_max=rate[-1], bounces=bounces,
+        launches=json.dumps(launches).replace(" ", ""),
+        k2_queries_per_closest=per_query, peak_bytes=max(peaks),
+        image_mean=float(img.mean()), finite=True)
+    return launches
+
+
+def phase_instance(camera, dev):
+    """Runtime instancing through K2: ``bench_scene``'s blob registered
+    once and instanced 3 times (one K2 query per instance) and 16 times
+    (one flattened query of 16 x 262,144 rays) in the empty box, through
+    ``Renderer(scene, camera).integrator("path").samples(4).render()`` at
+    256^2: build seconds, group records, instanced prims, rays/s,
+    launches, peak memory; instance_16's idle share and the peak of one
+    step at the Renderer's default target.  instance_3 also renders one
+    1-spp frame through "direct" and through "bdpt" (depth 6).  At
+    INST_PARITY_RES^2 (1 spp, fixed Russian-roulette threshold, square
+    filter) each kernel-routed image equals the plain-routed one (rtol
+    1e-5, atol 1e-6), and instance_3 equals its three instances baked
+    (983,076 triangles through K2; rtol 2e-2, atol 2e-3), flips counted
+    (at most 1%)."""
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.renderer import Renderer
+    t_phase = time.perf_counter()
+    small = build_camera(resolution=(INST_PARITY_RES, INST_PARITY_RES),
+                         device=dev)
+    small_frame = lambda s: integrator_frame(s, small, "path", 1, delta=1.0,
+                                             square=True)
+    launches = {}
+    for n in (3, 16):
+        name = f"instance_{n}"
+        t0 = time.perf_counter()
+        scene = instance_scene(dev, n)
+        torch.cuda.synchronize()
+        grp = scene.inst[0]
+        log("instance", scene=name, build_s=round(time.perf_counter() - t0, 3),
+            tris=scene.n_tris, instances=grp["minv"].shape[0],
+            group_tris=grp["a"].shape[0], group_records=grp["bvh"]["nodes"]
+            .shape[0], group_depth=grp["bvh"]["depth"],
+            inst_prims=scene.n_inst_prims)
+        frame = lambda: integrator_frame(scene, camera, "path", SPP)
+        launches[name] = _instance_frames(name, scene, frame, n)
+        img_k = _routed_parity("instance", name, "bvh",
+                               lambda: small_frame(scene))
+        if n == 3:
+            for kind, conf in (("direct", None),
+                               ("bdpt", lambda r: r.bdpt_depth(6))):
+                _reset_launches()
+                img, r, wall, _, _ = integrator_frame(scene, camera, kind, 1,
+                                                      configure=conf)
+                got = _launch_counts()
+                if not np.isfinite(img).all() or got["k2_closest"] <= 0 \
+                        or got["k2_any"] <= 0:
+                    raise AssertionError(f"instance {kind}: {got}")
+                log("instance", scene=name, integrator=kind, spp=1,
+                    rays_per_s=r / wall, launches=json.dumps(got).replace(
+                        " ", ""), finite=True)
+            del scene
+            t0 = time.perf_counter()
+            baked = instance_scene(dev, n, baked=True)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            img_b = small_frame(baked)[0]
+            flips, err = _image_parity(img_k, img_b, 2e-2, 2e-3)
+            log("instance", case="instanced-vs-baked", scene=name,
+                baked_tris=baked.n_bvh_tris, baked_build_s=round(build_s, 3),
+                pixels=INST_PARITY_RES ** 2, flips=flips,
+                image_max_abs_err=err, rtol=2e-2, atol=2e-3)
+            if flips > INST_PARITY_RES ** 2 // 100:
+                raise AssertionError("instance_3 and its baked twin disagree")
+            del baked
+        else:
+            idle_share(f"instance-profile-{name}", lambda: frame()[2])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = Renderer(scene, camera).samples(INST_DEFAULT_SPP)
+            lanes = RES * RES * r._auto_batch()
+            img = r.render(verbose=False)
+            log("instance", case="default-step", scene=name, lanes=lanes,
+                rays_per_query=lanes * n, spp=INST_DEFAULT_SPP,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                wall_s=round(time.perf_counter() - t0, 3),
+                finite=bool(np.isfinite(img).all()))
+            del scene
+    log("instance", phase_s=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def phase_io(camera, dev):
+    """The committed asset ``scenes/demo.zip`` through
+    ``io.obj.scene_from_zip`` (the port's own PNG decoder), built on the
+    card (K2), rendered through ``Renderer(...).integrator("path")`` at
+    256^2, 4 spp: decode and build seconds, rays/s, launches; the 64^2
+    kernel-routed image against the plain-routed one, and the glow panel
+    at the image's top brighter than the ground at its bottom
+    (``tests/test_io.py``'s check)."""
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.io import obj as obj_io
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "scenes", "demo.zip"), "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    sb = obj_io.scene_from_zip(data)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = sb.build(device=dev)
+    torch.cuda.synchronize()
+    log("io", scene="demo_zip", decode_s=round(decode_s, 3),
+        build_s=round(time.perf_counter() - t0, 3), tris=scene.n_tris,
+        lights=scene.n_lights, textures=len(sb.textures.images),
+        normal_maps=scene.n_normal_maps)
+    if scene.bvh is None or scene.n_tris <= 4000:
+        raise AssertionError("demo_zip: expected a BVH scene")
+    frame = lambda: integrator_frame(scene, camera, "path", SPP)
+    launches = _timed_frames("io", "demo_zip", "bvh", frame, IO_FRAMES, RES)
+    small = build_camera(resolution=(PARITY_RES, PARITY_RES), device=dev)
+    _routed_parity("io", "demo_zip", "bvh", lambda: integrator_frame(
+        scene, small, "path", 1, delta=1.0, square=True))
+    img = frame()[0]
+    rows = img.shape[0]       # tests/test_io.py's rows [:10] and [22:] of 32
+    top = float(img[:rows * 10 // 32].mean())
+    bottom = float(img[rows * 22 // 32:].mean())
+    log("io", scene="demo_zip", top_mean=top, bottom_mean=bottom)
+    if not (top > 5 * bottom and bottom > 1e-4):
+        raise AssertionError("demo_zip: the glow panel is not at the top")
+    log("io", phase_s=round(time.perf_counter() - t_phase, 1))
+    return launches
 
 
 def main():
@@ -1789,6 +2015,9 @@ def main():
     del scene_kd
     phase_materials(dev)
     phase_bdpt(scene, camera, dev)
+    del scene
+    phase_instance(camera, dev)
+    phase_io(camera, dev)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

@@ -251,9 +251,11 @@ def any_query(bvh, tri, o, d, t_max):
 
 def _chunks(o, T):
     """(ray chunk, triangle chunk) sizes bounding the (R, C) candidate
-    tensors at ~2**24 elements on the card, 2**18 on the CPU."""
+    tensors at ~2**24 elements on the card, 2**18 on the CPU; the
+    triangle chunk widens (up to all T) as the live rays ``o`` thin out,
+    so a wavefront's tail takes few passes."""
     budget = 1 << (24 if o.device.type == "cuda" else 18)
-    C = max(1, min(T, 4096))
+    C = max(1, min(T, max(4096, budget // max(o.shape[0], 1))))
     return max(1, budget // C), C
 
 

@@ -231,11 +231,12 @@ def finalize(film, filt: PixelFilter, splat_scale: float):
 
 
 def save_png(rgb_linear, path: str, colorspace="sRGB"):
-    """Encode with the color space transfer curve and write a PNG."""
-    from PIL import Image
-    cs = space.get(colorspace)
-    img = cs.encode(np.asarray(rgb_linear))
-    Image.fromarray(img, "RGB").save(path)
+    """Encode with the color space transfer curve and write a PNG (the
+    port's own encoder: it does not depend on Pillow)."""
+    from lumo_tpu_torch.io.image import encode_png
+    data = encode_png(space.get(colorspace).encode(np.asarray(rgb_linear)))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def wb_matrix(colorspace: str, illuminant) -> np.ndarray:

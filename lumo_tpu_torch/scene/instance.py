@@ -1,12 +1,13 @@
 """Instancing: fluent affine transforms over host meshes.
 
-Counterpart of the host-side half of ``lumo_tpu/scene/instance.py``: the
-transform is baked into the triangle vertices (exact - a triangle maps to
-a triangle) and the normal matrix into the shading normals when the mesh
-is added to a scene.  The fluent API mirrors ``Instanceable``
+Counterpart of the host-side half of ``lumo_tpu/scene/instance.py``:
+``add_to`` bakes the transform into the triangle vertices (exact - a
+triangle maps to a triangle) and the normal matrix into the shading
+normals; ``add_instances_to`` registers the mesh once and instances it
+under further transforms, inverse-transforming the rays at query time
+(``scene/trace.py``).  The fluent API mirrors ``Instanceable``
 (``instance.rs:202-299``) and the kd-tree helpers ``to_unit_size``,
-``to_origin``, ``set_x/y/z`` (``kdtree.rs:93-99``).  Runtime instancing
-(``add_instances_to``) raises with its ROADMAP item.
+``to_origin``, ``set_x/y/z`` (``kdtree.rs:93-99``).
 """
 from __future__ import annotations
 
@@ -133,8 +134,28 @@ class Mesh:
                     else (self.faces if self.uvs is not None else None)),
             transform=self.m)
 
-    def add_instances_to(self, builder: SceneBuilder, transforms, materials):
-        return builder.add_instanced_triangles()
+    def add_instances_to(self, builder: SceneBuilder, transforms,
+                         materials):
+        """Register the mesh once, in its current fluent frame, and
+        instance it under each further 4x4 transform with a per-instance
+        material (reference ``Instance``, ``instance.rs:5-15``); returns
+        the material ids.  Unlike :meth:`add_to` the geometry is not
+        duplicated: rays are inverse-transformed at render time."""
+        v = self.vertices @ self.m[:3, :3].T + self.m[:3, 3]
+        normals = self.normals
+        if normals is not None:
+            nm = np.linalg.inv(self.m[:3, :3]).T     # the normal matrix
+            normals = normals @ nm.T
+            normals = normals / np.maximum(
+                np.linalg.norm(normals, axis=-1, keepdims=True), 1e-30)
+        return builder.add_instanced_triangles(
+            v, self.faces, transforms, materials, normals=normals,
+            vertex_normal_idx=(self.normal_idx if self.normal_idx is not None
+                               else (self.faces if normals is not None
+                                     else None)),
+            uvs=self.uvs,
+            uv_idx=(self.uv_idx if self.uv_idx is not None
+                    else (self.faces if self.uvs is not None else None)))
 
 
 def sphere_instance(center, radius, t):

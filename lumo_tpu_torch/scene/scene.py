@@ -3,8 +3,10 @@
 Counterpart of ``lumo_tpu/scene/scene.py`` (reference ``scene.rs``).
 Primitives are three families with global ids: triangles ``[0, T)``,
 spheres ``[T, T+S)`` and analytic shapes (plane, disk, cone, cylinder,
-ellipsoid) after them; a scene may hold a texture table, an environment
-light (an emissive sphere around it) and a homogeneous medium.  Scenes
+ellipsoid) after them, then the runtime-instanced groups' triangles (a
+group of I instances of Tg triangles takes I * Tg ids, instance by
+instance); a scene may hold a texture table, an environment light (an
+emissive sphere around it) and a homogeneous medium.  Scenes
 of ``BVH_THRESHOLD`` triangles or more get a
 binned-SAH BVH whose leaf order the triangle arrays are permuted into;
 dominant-area triangles (room walls) are split out of the BVH and kept at
@@ -16,6 +18,12 @@ kernel's layout (``accel/kd_kernel.py``).  Spheres and analytic shapes
 are few and always tested densely.  Lights (triangles, spheres, disks)
 get a Walker alias table (reference ``bvh.rs:104-191``) built on the
 host.
+
+An instanced group keeps one copy of its local-space triangles and, from
+``BVH_THRESHOLD`` triangles on, its own BVH whatever ``accel`` is (the JAX
+package's group BVH, walls not split out), which ``trace`` walks with
+inverse-transformed rays; instances with a LIGHT material are baked into
+world-space triangles instead, so the light tables stay exact.
 
 The BVH is kept on the device only as repacked for the CUDA traversal
 kernel (``nodes``, ``tris``; see ``accel/bvh_kernel.py``): the builder's
@@ -48,6 +56,10 @@ SPH_COLS = {"sph_center": ((3,), np.float64), "sph_radius": ((), np.float64),
 ANA_COLS = {"ana_kind": ((), np.int32), "ana_rot": ((3, 3), np.float64),
             "ana_trans": ((3,), np.float64), "ana_radius": ((), np.float64),
             "ana_height": ((), np.float64), "ana_mat": ((), np.int32)}
+
+
+# per-instance tables of an instanced group
+INST_KEYS = ("minv", "mfwd", "trans", "mat")
 
 
 def _not_ported(what: str, item: int):
@@ -104,6 +116,14 @@ class SceneData:
     beckmann: bool             # the table has Beckmann rows
     tex_kinds: tuple           # texture kinds in the texture table
     n_normal_maps: int
+    # runtime-instanced groups (reference ``Instance<T>``,
+    # ``instance.rs:5-15``), each a dict: one copy of the local-space
+    # triangles (``TRI_KEYS``), its BVH in the kernel's layout or None
+    # (dense) under "bvh", and per instance the world->local map "minv"
+    # (I, 3, 3), the forward map "mfwd", the translation "trans" (I, 3)
+    # and the material "mat" (I,)
+    inst: tuple = ()
+    n_inst_prims: int = 0      # sum over groups of I * Tg
 
     @property
     def device(self) -> torch.device:
@@ -119,6 +139,9 @@ class SceneData:
         for name in ("materials", "textures", "medium", "bvh", "kdtree"):
             if getattr(self, name) is not None:
                 repl[name] = {k: mv(v) for k, v in getattr(self, name).items()}
+        repl["inst"] = tuple(
+            {k: ({kk: mv(vv) for kk, vv in v.items()} if k == "bvh" and v
+                 else mv(v)) for k, v in g.items()} for g in self.inst)
         return SceneData(**repl)
 
     def rebuild_light_alias(self) -> "SceneData":
@@ -171,6 +194,28 @@ class SceneData:
             alias_idx=tens(alias, self.alias_idx))
 
 
+def _mesh_geometry(v, faces, normals, normal_idx, uvs, uv_idx):
+    """A mesh's per-corner tables (``TRI_KEYS``) from vertices ``v`` (V, 3)
+    and faces (F, 3): normals and uvs gathered where both the table and its
+    index are given, else zero normals and the reference's default uvs
+    (0,0), (1,0), (1,1) (``triangle.rs:160-166``); degenerate triangles
+    culled (reference ``triangle_mesh.rs:57-97``)."""
+    f = np.asarray(faces, np.int64)
+    a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+
+    def corners(table, idx, default):
+        if table is None or idx is None:
+            return [np.tile(x, (len(a), 1)) for x in default]
+        t, i = np.asarray(table, np.float64), np.asarray(idx, np.int64)
+        return [t[i[:, 0]], t[i[:, 1]], t[i[:, 2]]]
+
+    na, nb, nc = corners(normals, normal_idx, [[0.0, 0.0, 0.0]] * 3)
+    uva, uvb, uvc = corners(uvs, uv_idx, [[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
+    keep = np.linalg.norm(np.cross(b - a, c - a), axis=-1) > 1e-20
+    return {k: x[keep] for k, x in zip(
+        TRI_KEYS, (a, b, c, na, nb, nc, uva, uvb, uvc))}
+
+
 def _empty_tri_chunk():
     return {
         "a": np.zeros((0, 3)), "b": np.zeros((0, 3)), "c": np.zeros((0, 3)),
@@ -190,6 +235,7 @@ class SceneBuilder:
         self._tri_chunks = []  # list of (geom dict, mat_idx, is_light)
         self._spheres = []     # list of (center, radius, mat_idx, is_light)
         self._analytic = []    # (kind, rot, trans, r, h, mat, is_light)
+        self._inst_groups = []  # (geom dict, [(4x4 transform, mat_idx)])
         self._materials: list[Material] = []
         self.environment: Optional[Material] = None
         self.medium = None
@@ -209,40 +255,18 @@ class SceneBuilder:
         normals/uvs optionally indexed per face corner."""
         mid, is_light = self._mat_id(mat)
         v = np.asarray(vertices, np.float64)
+        n = normals
         if transform is not None:
             m = np.asarray(transform, np.float64)
             v = v @ m[:3, :3].T + m[:3, 3]
-        f = np.asarray(faces, np.int64)
-        a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
-        zero3 = np.zeros_like(a)
-        if normals is not None and vertex_normal_idx is not None:
-            n = np.asarray(normals, np.float64)
-            if transform is not None:
-                m = np.asarray(transform, np.float64)
+            if n is not None:
                 nm = np.linalg.inv(m[:3, :3]).T
-                n = n @ nm.T
+                n = np.asarray(n, np.float64) @ nm.T
                 norms = np.linalg.norm(n, axis=-1, keepdims=True)
                 n = n / np.maximum(norms, 1e-30)
-            ni = np.asarray(vertex_normal_idx, np.int64)
-            na, nb, nc = n[ni[:, 0]], n[ni[:, 1]], n[ni[:, 2]]
-        else:
-            na = nb = nc = zero3
-        if uvs is not None and uv_idx is not None:
-            t = np.asarray(uvs, np.float64)
-            ti = np.asarray(uv_idx, np.int64)
-            uva, uvb, uvc = t[ti[:, 0]], t[ti[:, 1]], t[ti[:, 2]]
-        else:
-            # reference default: (0,0), (1,0), (1,1) (``triangle.rs:160-166``)
-            uva = np.tile([0.0, 0.0], (len(a), 1))
-            uvb = np.tile([1.0, 0.0], (len(a), 1))
-            uvc = np.tile([1.0, 1.0], (len(a), 1))
-        # cull degenerates (reference ``triangle_mesh.rs:57-97``)
-        area2 = np.linalg.norm(np.cross(b - a, c - a), axis=-1)
-        keep = area2 > 1e-20
-        geom = {"a": a[keep], "b": b[keep], "c": c[keep],
-                "na": na[keep], "nb": nb[keep], "nc": nc[keep],
-                "uva": uva[keep], "uvb": uvb[keep], "uvc": uvc[keep]}
-        self._tri_chunks.append((geom, mid, is_light))
+        self._tri_chunks.append((_mesh_geometry(v, faces, n,
+                                                vertex_normal_idx, uvs,
+                                                uv_idx), mid, is_light))
         return mid
 
     def add_rectangle(self, p0, p1, p2, mat: Material | int):
@@ -333,8 +357,37 @@ class SceneBuilder:
         return self._add_analytic(analytic.CYLINDER, rot, trans, radius * s,
                                   height * s, mat)
 
-    def add_instanced_triangles(self, *args, **kwargs):
-        raise _not_ported("runtime instancing", 9)
+    def add_instanced_triangles(self, vertices, faces, transforms, mats,
+                                normals=None, vertex_normal_idx=None,
+                                uvs=None, uv_idx=None):
+        """Register a mesh once and instance it under each 4x4 affine of
+        ``transforms`` with the material of the same place in ``mats``
+        (reference ``instance.rs:5-15``); returns the material ids.  Rays
+        are inverse-transformed at query time: the geometry is not
+        duplicated.  An instance with a LIGHT material is baked into
+        world-space light triangles instead (reference ``Instance<T>`` is
+        Sampleable, ``instance.rs:169-199``), so its areas, sampling pdfs
+        and alias-table rows are exact in the transformed frame."""
+        geom = _mesh_geometry(
+            np.asarray(vertices, np.float64), faces, normals,
+            faces if vertex_normal_idx is None else vertex_normal_idx, uvs,
+            faces if uv_idx is None else uv_idx)
+        insts, mids = [], []
+        for m, mt in zip(transforms, mats):
+            mid, is_light = self._mat_id(mt)
+            mm = np.asarray(m, np.float64)
+            if abs(np.linalg.det(mm[:3, :3])) < 1e-30:
+                raise ValueError("singular instance transform")
+            if is_light:
+                self.add_triangles(vertices, faces, mid, normals=normals,
+                                   vertex_normal_idx=vertex_normal_idx,
+                                   uvs=uvs, uv_idx=uv_idx, transform=mm)
+            else:
+                insts.append((mm, mid))
+            mids.append(mid)
+        if insts:
+            self._inst_groups.append((geom, insts))
+        return mids
 
     def set_environment_map(self, mat: Material):
         """Environment light: a giant emissive sphere around the scene,
@@ -478,7 +531,8 @@ class SceneBuilder:
             prim_light=prim_light, bounds=np.stack([lo, hi]),
             materials=pack_materials(mats), n_bvh_tris=T_bvh,
             textures=self.textures.pack(dtype), medium=medium,
-            n_normal_maps=len(self.textures.normal_images))
+            n_normal_maps=len(self.textures.normal_images),
+            inst=self._group_tables())
         bvh_np = None
         if bvh is not None:
             bvh_np = {"lo": bvh.node_lo, "hi": bvh.node_hi,
@@ -492,6 +546,32 @@ class SceneBuilder:
                      "prims": kdt.prims, "lo": kdt.root_lo, "hi": kdt.root_hi,
                      "depth": kdt.max_depth}
         return from_numpy(fields, bvh_np, device, dtype=dtype, kd=kd_np)
+
+    def _group_tables(self):
+        """The instanced groups as host dicts: each group's triangles in
+        its BVH's leaf order with the BVH's binary tables under "bvh"
+        (None below ``BVH_THRESHOLD`` triangles), and the per-instance
+        maps."""
+        from lumo_tpu_torch.accel import build as accel_build
+        out = []
+        for geom, insts in self._inst_groups:
+            g = dict(geom)
+            g["bvh"] = None
+            if len(g["a"]) >= BVH_THRESHOLD:
+                bh = accel_build.build(*accel_build.triangle_bounds(
+                    g["a"], g["b"], g["c"]))
+                g = {k: v[bh.order] for k, v in geom.items()}
+                g["bvh"] = {"lo": bh.node_lo, "hi": bh.node_hi,
+                            "right": bh.node_right, "first": bh.node_first,
+                            "count": bh.node_count, "axis": bh.node_axis,
+                            "depth": bh.depth}
+            g.update(minv=np.stack([np.linalg.inv(m[:3, :3])
+                                    for m, _ in insts]),
+                     mfwd=np.stack([m[:3, :3] for m, _ in insts]),
+                     trans=np.stack([m[:3, 3] for m, _ in insts]),
+                     mat=np.asarray([mid for _, mid in insts], np.int32))
+            out.append(g)
+        return tuple(out)
 
     def _shape_tables(self):
         """The sphere and analytic tables as host arrays."""
@@ -530,6 +610,18 @@ class SceneBuilder:
             world = corners @ np.linalg.inv(rot).T + trans
             lo = np.minimum(lo, world.min(axis=0))
             hi = np.maximum(hi, world.max(axis=0))
+        for geom, insts in self._inst_groups:
+            if not len(geom["a"]):
+                continue
+            box = [np.minimum.reduce([geom[k].min(axis=0) for k in "abc"]),
+                   np.maximum.reduce([geom[k].max(axis=0) for k in "abc"])]
+            corners = np.array([[box[i][0], box[j][1], box[k][2]]
+                                for i in (0, 1) for j in (0, 1)
+                                for k in (0, 1)])
+            for m, _ in insts:
+                world = corners @ m[:3, :3].T + m[:3, 3]
+                lo = np.minimum(lo, world.min(axis=0))
+                hi = np.maximum(hi, world.max(axis=0))
         if not np.isfinite(lo).all():
             lo, hi = -np.ones(3), np.ones(3)
         return lo, hi
@@ -557,10 +649,14 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     the packed material table), and, where the scene has them, the sphere
     and analytic tables ``sph_*`` and ``ana_*``, ``textures`` (the texture
     table's dict), ``medium`` (sigma_t, sigma_s, g, t_scale, mat) and
-    ``n_normal_maps``; ``bvh`` holds the binary tables
-    ``lo, hi, right, first, count, axis`` (and optionally ``depth``) or is
-    ``None`` for a brute-force scene, and is kept only in the kernel's
-    layout (``bvh_kernel.pack_nodes``/``pack_tris``); ``kd`` holds the
+    ``n_normal_maps``, and ``inst``, the instanced groups (a sequence of
+    dicts of the local-space triangles ``a, b, c, na, nb, nc, uva, uvb,
+    uvc`` in leaf order, ``minv``, ``mfwd``, ``trans``, ``mat`` and
+    ``bvh``, the group's binary BVH tables or None); ``bvh`` holds the
+    binary tables ``lo, hi, right, first, count, axis`` (and optionally
+    ``depth``) or is ``None`` for a brute-force scene, and is kept only in
+    the kernel's layout (``bvh_kernel.pack_nodes``/``pack_tris``), as is
+    each group's; ``kd`` holds the
     flat kd-tree tables ``split, axis, right, first, count, prims, lo, hi``
     (and optionally ``depth``) of a scene built with ``accel="kdtree"``
     and is kept only in the kd kernel's layout (``kd_kernel.pack_kd``).
@@ -587,17 +683,27 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     medium = fields.get("medium")
     T_bvh = int(fields.get("n_bvh_tris", T))
     L = int(np.asarray(fields["light_prim"]).shape[0])
+
+    def packed_bvh(tables, a, b, c):
+        """A BVH's binary tables and leaf-order triangles in the kernel's
+        layout."""
+        t = {k: np.asarray(tables[k]) for k in BVH_KEYS}
+        return {"nodes": tens(bvh_kernel.pack_nodes(t)),
+                "tris": tens(bvh_kernel.pack_tris(
+                    *(np.asarray(x, np.float32) for x in (a, b, c)))),
+                "depth": int(tables["depth"]) if "depth" in tables
+                else _bvh_depth(t["right"], t["count"])}
+
     bvh_dev = None
     if bvh is not None:
-        b = {k: np.asarray(bvh[k]) for k in BVH_KEYS}
-        depth = int(bvh["depth"]) if "depth" in bvh else _bvh_depth(
-            b["right"], b["count"])
-        bvh_dev = {
-            "nodes": tens(bvh_kernel.pack_nodes(b)),
-            "tris": tens(bvh_kernel.pack_tris(
-                *(np.asarray(fields[f"tri_{k}"], np.float32)[:T_bvh]
-                  for k in "abc"))),
-            "depth": depth}
+        bvh_dev = packed_bvh(bvh, *(np.asarray(fields[f"tri_{k}"])[:T_bvh]
+                                    for k in "abc"))
+    inst = []
+    for g in fields.get("inst", ()):
+        grp = {k: tens(g[k]) for k in TRI_KEYS + INST_KEYS}
+        grp["bvh"] = None if g["bvh"] is None else packed_bvh(
+            g["bvh"], g["a"], g["b"], g["c"])
+        inst.append(grp)
     kd_dev = None
     if kd is not None:
         if bvh is not None:
@@ -637,6 +743,8 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
         tex_kinds=() if tex is None else tuple(
             sorted(int(k) for k in np.unique(np.asarray(tex["kind"])))),
         n_normal_maps=int(fields.get("n_normal_maps", 0)),
+        inst=tuple(inst),
+        n_inst_prims=sum(g["minv"].shape[0] * g["a"].shape[0] for g in inst),
     )
 
 

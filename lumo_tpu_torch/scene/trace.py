@@ -1,16 +1,29 @@
 """Device-side scene queries over ray wavefronts: intersection, occlusion,
 light sampling, emission, medium transmittance.
 
-Counterpart of ``lumo_tpu/scene/trace.py`` without runtime instancing
-(reference ``scene.rs`` hit / hit_light / transmittance, ``medium.rs``
-and the Sampleable light methods, ``triangle.rs:215-241``,
-``sphere.rs:135-207``, ``disk.rs:131-160``).  Small scenes are tested
-densely; BVH scenes go through ``accel.bvh_kernel`` (the CUDA kernel on
-the card), with the split-out walls tested densely first so that every
-walk starts pruned; kd-tree scenes go through ``accel.kd_kernel`` and
-keep their walls in the tree.  Spheres and analytic shapes are few and
-always tested densely, and join the closest hit after the walk.  Plain
-indexing replaces the JAX package's one-hot gathers.
+Counterpart of ``lumo_tpu/scene/trace.py`` (reference ``scene.rs`` hit /
+hit_light / transmittance, ``medium.rs``, ``instance.rs`` and the
+Sampleable light methods, ``triangle.rs:215-241``, ``sphere.rs:135-207``,
+``disk.rs:131-160``).  Small scenes are tested densely; BVH scenes go
+through ``accel.bvh_kernel`` (the CUDA kernel on the card), with the
+split-out walls tested densely first so that every walk starts pruned;
+kd-tree scenes go through ``accel.kd_kernel`` and keep their walls in the
+tree.  Spheres and analytic shapes are few and always tested densely,
+and join the closest hit after the walk.  Plain indexing replaces the
+JAX package's one-hot gathers.
+
+Runtime-instanced groups join last (reference ``instance.rs:81-105``):
+the rays go into each instance's local space without renormalising the
+direction, so a local hit distance is the world one, and each group's
+BVH (``accel.bvh_kernel``, whatever the scene's ``accel``; dense below
+``BVH_THRESHOLD`` triangles) is walked once per instance where a group
+has at most ``FLAT_MIN - 1`` instances, else once over all N * I
+instance rays of the wavefront.  The two forms of the local rays are the
+JAX package's own, which round differently: a matrix product per
+instance, and einsums, here fused multiply-add chains (``_matvec``), as
+XLA computes them on the CPU.  Unlike the JAX package, the group walks
+of ``intersect`` honour the query's ``t_max`` (ROADMAP.md section 3): a
+dead lane misses every group too.
 
 The traversal is not differentiated: the walks get detached rays and
 ``t_max`` (``lumo_tpu/scene/trace.py:111-112,128,481-482``), and the hit
@@ -41,9 +54,11 @@ from lumo_tpu_torch.geometry.onb import cross, dot, norm, normalize, onb_frame
 from lumo_tpu_torch.sampling import maps
 from lumo_tpu_torch.sampling.samplers import _randfloat
 from lumo_tpu_torch.scene.materials import LIGHT
-from lumo_tpu_torch.scene.scene import SceneData
+from lumo_tpu_torch.scene.scene import TRI_KEYS, SceneData
 
 PI = math.pi
+# groups of this many instances or more take one flattened N * I query
+FLAT_MIN = 5
 
 
 # the registered traversal operators, whose outputs a checkpointed bounce
@@ -157,10 +172,18 @@ def _argmin_t(ts):
 def _closest(scene: SceneData, o, d, t_max):
     """(t, global prim id) closest hit (prim 0 with t = INF on a miss):
     the kd-tree or BVH walk over triangles when built, then the spheres
-    and analytic shapes densely; everything densely otherwise."""
+    and analytic shapes densely; everything densely otherwise; then the
+    instanced groups."""
     t_max = rows(t_max, o)
     if scene.kdtree is None and scene.bvh is None:
-        return _argmin_t(_all_t(scene, o, d, t_max))
+        t, prim = _argmin_t(_all_t(scene, o, d, t_max))
+    else:
+        t, prim = _tree_closest(scene, o, d, t_max)
+    return _instanced_closest(scene, o, d, t_max, t, prim)
+
+
+def _tree_closest(scene: SceneData, o, d, t_max):
+    """:func:`_closest` of a scene with a tree, before the groups."""
     if scene.kdtree is not None:
         t_k, p = kd_kernel.closest_query(scene.kdtree, o.detach(), d.detach(),
                                          t_max.detach())
@@ -190,6 +213,139 @@ def _closest(scene: SceneData, o, d, t_max):
             t = torch.minimum(t, tf)
         base += n
     return t, prim
+
+
+def _matvec(m, v):
+    """m @ v over the last axes, (..., 3, 3) x (..., 3) -> (..., 3), as the
+    fused multiply-add chain over j = 0, 1, 2 that the JAX package's
+    einsums round as on the CPU."""
+    out = m[..., 0] * v[..., None, 0]
+    out = torch.addcmul(out, m[..., 1], v[..., None, 1])
+    return torch.addcmul(out, m[..., 2], v[..., None, 2])
+
+
+def _local_rays(grp, i, o, d):
+    """Rays (N, 3) in the local space of instance ``i`` of a group."""
+    minv = grp["minv"][i]
+    return (o - grp["trans"][i]) @ minv.T, d @ minv.T
+
+
+def _flat_rays(grp, o, d):
+    """The rays of every instance of a group in local space, (N * I, 3)
+    each with instance i of ray n at row n * I + i."""
+    minv = grp["minv"]
+    ol = _matvec(minv, o[:, None]) - _matvec(minv, grp["trans"])
+    dl = _matvec(minv, d[:, None])
+    return ol.reshape(-1, 3).contiguous(), dl.reshape(-1, 3).contiguous()
+
+
+def _group_tris(grp):
+    return tuple(grp[k].detach() for k in "abc")
+
+
+def _group_t(grp, o, d, t_max):
+    """(M, Tg) dense hit distances against a group's triangles."""
+    kz, shear = geo.ray_setup(d)
+    return geo.triangle_t(o, kz, shear, *(x[None] for x in _group_tris(grp)),
+                          0.0, t_max[..., None])[0]
+
+
+def _group_hit(grp, o, d, t_max):
+    """(t, p) closest hit of local rays o, d (M, 3) against one group,
+    p = -1 on a miss: K2 through its registered operator where the group
+    has a BVH, the dense test otherwise, on detached rays; t is
+    differentiable in o, d and the group's vertices (:class:`_HitT`)."""
+    o_s, d_s, tm = o.detach(), d.detach(), t_max.detach()
+    if grp["bvh"] is not None:
+        t_k, p = bvh_kernel.closest_query(grp["bvh"], _group_tris(grp), o_s,
+                                          d_s, tm)
+    else:
+        t_k, p = _argmin_t(_group_t(grp, o_s, d_s, tm))
+        p = torch.where(torch.isfinite(t_k), p, -1)
+    p_safe = torch.clamp(p, 0, grp["a"].shape[0] - 1)
+    return _HitT.apply(o, d, grp["a"], grp["b"], grp["c"], p_safe, t_k,
+                       p >= 0), p
+
+
+def _group_any(grp, o, d, t_max):
+    """Any hit of detached local rays against one group."""
+    if grp["bvh"] is not None:
+        return bvh_kernel.any_query(grp["bvh"], _group_tris(grp), o, d, t_max)
+    return torch.isfinite(_group_t(grp, o, d, t_max)).any(dim=-1)
+
+
+def _instanced_closest(scene: SceneData, o, d, t_max, t, prim):
+    """Fold the instanced groups into the closest hit (t, prim); a group
+    walk starts pruned at the best hit so far (and at ``t_max``).  Prim
+    ids: T + S + A, then per group instance-major."""
+    base = scene.n_tris + scene.n_spheres + scene.n_analytic
+    for grp in scene.inst:
+        Tg, I = grp["a"].shape[0], grp["minv"].shape[0]
+        if I < FLAT_MIN:
+            for i in range(I):
+                tg, pg = _group_hit(grp, *_local_rays(grp, i, o, d),
+                                    torch.minimum(t, t_max))
+                better = tg < t
+                t = torch.where(better, tg, t)
+                prim = torch.where(better, base + i * Tg + pg, prim)
+        else:
+            tm = torch.minimum(t, t_max).repeat_interleave(I)
+            tg, pg = _group_hit(grp, *_flat_rays(grp, o, d), tm)
+            tb, ii = _argmin_t(tg.view(-1, I))
+            pb = torch.gather(pg.view(-1, I), 1, ii[:, None])[:, 0]
+            better = tb < t
+            t = torch.where(better, tb, t)
+            prim = torch.where(better, base + ii * Tg + pb, prim)
+        base += I * Tg
+    return t, prim
+
+
+def _instanced_occluded(scene: SceneData, o, d, t_max, occ):
+    """Any hit against the instanced groups, or'ed into ``occ``; a lane
+    already occluded enters each further walk with t_max 0."""
+    o_s, d_s = o.detach(), d.detach()
+    for grp in scene.inst:
+        I = grp["minv"].shape[0]
+        if I < FLAT_MIN:
+            for i in range(I):
+                tm = torch.where(occ, 0.0, t_max.detach())
+                occ = occ | _group_any(grp, *_local_rays(grp, i, o_s, d_s),
+                                       tm)
+        else:
+            tm = torch.where(occ, 0.0, t_max.detach()).repeat_interleave(I)
+            occ = occ | _group_any(grp, *_flat_rays(grp, o_s, d_s),
+                                   tm).view(-1, I).any(dim=1)
+    return occ
+
+
+def _instanced_detail(scene: SceneData, o, d, t_det, prim, det, mat):
+    """Shading data of the lanes whose prim is instanced: the local
+    triangle's details under the instance's forward map, normals by the
+    inverse transpose (reference ``instance.rs:81-127``), the instance's
+    material; ``det`` and ``mat`` elsewhere."""
+    basep = scene.n_tris + scene.n_spheres + scene.n_analytic
+    for grp in scene.inst:
+        Tg, I = grp["a"].shape[0], grp["minv"].shape[0]
+        in_g = (prim >= basep) & (prim < basep + I * Tg)
+        li = torch.clamp(prim - basep, 0, I * Tg - 1)
+        ii, ti = li // Tg, li % Tg
+        minv, mfwd, tr = grp["minv"][ii], grp["mfwd"][ii], grp["trans"][ii]
+        dg = geo.triangle_detail(_matvec(minv, o - tr), _matvec(minv, d),
+                                 *(grp[k][ti] for k in TRI_KEYS))
+        minv_t = minv.transpose(1, 2)
+        ng = normalize(_matvec(minv_t, dg["ng"]), eps=1e-30)
+        has_ns = (dg["ns"] * dg["ns"]).sum(-1, keepdim=True) > 1e-12
+        ns = torch.where(has_ns, normalize(_matvec(minv_t, dg["ns"]),
+                                           eps=1e-30), ng)
+        p = _matvec(mfwd, dg["p"]) + tr
+        # t_det, not raw t: 0 * INF on a miss lane would poison gradients
+        err = gamma_bound(9) * (torch.abs(p) + torch.abs(tr)
+                                + torch.abs(t_det[..., None] * d))
+        dd = {"p": p, "ng": ng, "ns": ns, "uv": dg["uv"], "err": err}
+        det = {k: _pick(in_g, dd[k], det[k]) for k in det}
+        mat = torch.where(in_g, grp["mat"][ii], mat)
+        basep += I * Tg
+    return det, mat
 
 
 def _medium_free_flight(scene: SceneData, rng, salt):
@@ -233,7 +389,7 @@ def intersect(scene: SceneData, o, d, t_max=None, rng=None, salt=0,
     valid = torch.isfinite(t)
     T, S, A = scene.n_tris, scene.n_spheres, scene.n_analytic
     # miss lanes must not feed INF into the detail math (o + t d)
-    t_det = _finite(t) if S or A else None
+    t_det = _finite(t) if S or A or scene.inst else None
 
     fams = []                   # (first prim id, end prim id, detail, mat)
     if T:
@@ -265,6 +421,7 @@ def intersect(scene: SceneData, o, d, t_max=None, rng=None, salt=0,
         mask = (prim >= first) & (prim < end) if first else prim < end
         det = {k: _pick(mask, dd[k], det[k]) for k in det}
         mat = torch.where(mask, mm, mat)
+    det, mat = _instanced_detail(scene, o, d, t_det, prim, det, mat)
 
     backface = dot(d, det["ng"]) > 0.0
     # normal mapping: perturb ns in its per-hit frame
@@ -275,6 +432,7 @@ def intersect(scene: SceneData, o, d, t_max=None, rng=None, salt=0,
         n_tan = texture_mod.normal_at(scene.textures, nm, det["uv"])
         ns = torch.where((nm >= 0)[..., None],
                          normalize(onb.to_world(ns, n_tan)), ns)
+    # instanced prims (ids past the prim_light table) are never lights
     n_pl = scene.prim_light.shape[0]
     out = {
         "valid": valid, "t": torch.where(valid, t, INF), "prim": prim,
@@ -337,6 +495,7 @@ def occluded(scene: SceneData, o, d, t_max, rng=None, salt=0):
         if scene.n_analytic:
             occ = occ | torch.isfinite(_analytic_t(scene, o, d,
                                                    t_max)).any(dim=-1)
+    occ = _instanced_occluded(scene, o, d, t_max, occ)
     if scene.medium is not None:
         t_med, has_density = _medium_free_flight(scene, rng, salt)
         occ = occ | (has_density & (t_med > 0.0) & (t_med < t_max))

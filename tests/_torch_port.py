@@ -17,6 +17,9 @@ SHAPE_FIELDS = ("sph_center", "sph_radius", "sph_mat", "ana_kind", "ana_rot",
                 "ana_trans", "ana_radius", "ana_height", "ana_mat")
 BVH_KEYS = ("lo", "hi", "right", "first", "count", "axis")
 KD_KEYS = ("split", "axis", "right", "first", "count", "prims", "lo", "hi")
+# the arrays of an instanced group besides its BVH
+INST_FIELDS = ("a", "b", "c", "na", "nb", "nc", "uva", "uvb", "uvc", "minv",
+               "mfwd", "trans", "mat")
 
 BLOB_SEED = 11
 
@@ -51,6 +54,11 @@ def jax_scene_arrays(js):
     fields["materials"] = host(js.materials)
     fields["textures"] = host(js.textures)
     fields["medium"] = host(js.medium)
+    fields["inst"] = tuple(
+        {**{k: np.asarray(g[k]) for k in INST_FIELDS},
+         "bvh": None if g["bvh"] is None else {k: np.asarray(g["bvh"][k])
+                                               for k in BVH_KEYS}}
+        for g in js.inst)
     bvh = None
     if js.bvh is not None:
         bvh = {k: np.asarray(js.bvh[k]) for k in BVH_KEYS}

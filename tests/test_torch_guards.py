@@ -1,6 +1,8 @@
-"""Guards on the port's boundaries: lumo_tpu_torch and chip_smoke.py
-import neither JAX nor anything of lumo_tpu, and the entry points run on
-the card unless the caller names another device."""
+"""Guards on the port's boundaries: lumo_tpu_torch (its host I/O
+included) and chip_smoke.py import neither JAX, nor anything of lumo_tpu,
+nor PIL (the port needs torch, numpy and the standard library only), and
+the entry points run on the card unless the caller names another
+device."""
 import os
 import subprocess
 import sys
@@ -20,16 +22,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["PIL"] = None            # and any `import PIL`
 import lumo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lumo_tpu_torch.__path__,
                                                "lumo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import os, tempfile
+import numpy as np
+from lumo_tpu_torch import film           # its PNG writer runs without PIL
+with tempfile.TemporaryDirectory() as tmp:
+    film.save_png(np.zeros((2, 2, 3)), os.path.join(tmp, "x.png"))
 leaked = sorted(m for m in sys.modules
                 if m == "lumo_tpu" or m.startswith("lumo_tpu."))
 assert not leaked, leaked
-assert "jax" not in sys.modules or sys.modules["jax"] is None
+for banned in ("jax", "PIL"):
+    assert banned not in sys.modules or sys.modules[banned] is None, banned
+assert {"lumo_tpu_torch.io.obj", "lumo_tpu_torch.io.image"} <= set(names)
 print(len(names))
 """
 
@@ -40,7 +50,7 @@ def test_port_imports_neither_jax_nor_lumo_tpu():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 42     # every module was imported
+    assert int(res.stdout.split()[-1]) >= 45     # every module was imported
 
 
 def _box():

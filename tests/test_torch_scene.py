@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import (BVH_KEYS, SCENE_FIELDS, SHAPE_FIELDS, blob_box,
-                         jax_scene_arrays, port_scene_from_jax)
+from _torch_port import (BVH_KEYS, INST_FIELDS, SCENE_FIELDS, SHAPE_FIELDS,
+                         blob_box, jax_scene_arrays, port_scene_from_jax)
 from lumo_tpu_torch.accel import bvh_kernel
 from lumo_tpu_torch.scene import scene as tscene
 from lumo_tpu_torch.scene.materials import Material
@@ -87,7 +87,7 @@ def test_kdtree_scene_builds():
 
 
 def _part_scene(pkg, what):
-    """The subdiv-1 blob box with one part of slice 5 added."""
+    """The subdiv-1 blob box with one part of slice 5 or 7 added."""
     import importlib
     M = importlib.import_module(f"{pkg}.scene.materials").Material
     sb = blob_box(pkg, 1)
@@ -98,21 +98,22 @@ def _part_scene(pkg, what):
         sb.add_box(M.glass())
     elif what == "medium":
         sb.set_medium((0.1, 0.1, 0.1), (0.1, 0.1, 0.1), 0.0)
+    elif what == "instancing":
+        inst = importlib.import_module(f"{pkg}.scene.instance")
+        v, f, vn = importlib.import_module(f"{pkg}.scene.shapes").blob(
+            subdiv=2, seed=3, amp=0.15)
+        inst.Mesh(v, f, normals=vn).scale_uniform(0.2).add_instances_to(
+            sb, [inst.translation(0.3 * i - 0.5, 0.4, -1.2) for i in range(3)],
+            [M.diffuse((0.2, 0.3, 0.9)), M.glass(), M.light(2.0)])
     return sb
 
 
 @pytest.mark.parametrize("what", ["sphere", "glass", "medium",
                                   "instancing"])
 def test_unported_parts_raise(what):
-    """Spheres, glass and the medium build (slice 5) and their arrays
-    equal the JAX package's, carried through ``from_numpy``; runtime
-    instancing still raises with its ROADMAP item."""
-    if what == "instancing":
-        sb = blob_box("lumo_tpu_torch", 1)
-        with pytest.raises(NotImplementedError, match="item 9\\)"):
-            sb.add_instanced_triangles(np.zeros((3, 3)), [[0, 1, 2]],
-                                       [np.eye(4)], [0])
-        return
+    """Spheres, glass, the medium (slice 5) and runtime instancing (slice
+    7: two instances in a group, a third, a light, baked) build, and their
+    arrays equal the JAX package's, carried through ``from_numpy``."""
     js = _part_scene("lumo_tpu", what).build()
     ts = _part_scene("lumo_tpu_torch", what).build(device="cpu")
     carried = port_scene_from_jax(js)
@@ -129,6 +130,18 @@ def test_unported_parts_raise(what):
                                                  js.medium is None)
     if what == "sphere":
         assert ts.n_spheres == 2 and ts.n_lights == js.n_lights == 3
+    if what == "instancing":
+        assert [g["minv"].shape[0] for g in ts.inst] == [2]
+        assert ts.n_inst_prims == js.n_inst_prims == carried.n_inst_prims > 0
+        assert ts.n_lights == js.n_lights > 0
+        for port in (ts, carried):
+            for k in INST_FIELDS:
+                np.testing.assert_allclose(port.inst[0][k].numpy(),
+                                           np.asarray(js.inst[0][k]),
+                                           rtol=1e-6, err_msg=k)
+            np.testing.assert_array_equal(
+                port.inst[0]["bvh"]["nodes"].numpy(), bvh_kernel.pack_nodes(
+                    {k: np.asarray(js.inst[0]["bvh"][k]) for k in BVH_KEYS}))
     if what == "medium":
         for k, v in js.medium.items():
             np.testing.assert_allclose(ts.medium[k].numpy(), np.asarray(v),
