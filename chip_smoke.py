@@ -38,7 +38,13 @@ paths over ``bench.py``'s scenes at 256x256:
   instance_3 against the same instances baked (983,076 triangles);
 - host I/O (``[io]``): the committed ``scenes/demo.zip`` (.obj, .mtl,
   PNG textures, a bump map) through the port's loader and PNG decoder,
-  rendered through K2.
+  rendered through K2;
+- the quality harness (``[quality]``, ``lumo_tpu_torch/tools/quality.py``
+  at ``tools/quality.py 64 4``'s configurations): float32 against the
+  float64 reference mode and float64 AD against finite differences on the
+  Cornell box and an instanced, textured blob scene, whose float32 renders
+  go through K2 and whose float64 renders through the plain float64
+  route, held to every threshold of ``tests/test_quality_f64.py``.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -67,7 +73,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RES = 256            # bench.py's resolution
 SPP = 4              # 4 spp x 256^2 = one wavefront of 262,144 lanes
 PARITY_RES = 64
-FRAMES = 2           # timed frames of the render (5 until slice 6)
+PARITY_KD_SPP = 1    # samples of [parity-kd]'s images (SPP until slice 8)
+FRAMES = 1           # timed frames of the render (5 until slice 6, 2
+                     # until slice 8)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -649,23 +657,24 @@ def phase_render_kd(scene, camera):
 
 
 def phase_parity_kd(scene, dev, rtol=1e-5, atol=1e-6):
-    """A 64x64 Renderer image (4 spp, fixed Russian-roulette threshold 1)
-    with the kernel against the same with the plain walk.  The film's
-    ``index_add_`` uses atomics on the card, so sums differ in order:
-    pixels within (rtol, atol); pixels beyond it are counted as flips."""
+    """A 64x64 Renderer image (PARITY_KD_SPP spp, fixed Russian-roulette
+    threshold 1) with the kernel against the same with the plain walk.
+    The film's ``index_add_`` uses atomics on the card, so sums differ in
+    order: pixels within (rtol, atol); pixels beyond it are counted as
+    flips."""
     from lumo_tpu_torch.accel import kd_kernel
     from lumo_tpu_torch.camera import build_camera
     cam = build_camera(resolution=(PARITY_RES, PARITY_RES), device=dev)
-    img_k, _, _ = kd_frame(scene, cam, SPP, delta=1.0)
+    img_k, _, _ = kd_frame(scene, cam, PARITY_KD_SPP, delta=1.0)
     t0 = time.perf_counter()
     with mock.patch.object(kd_kernel, "closest_hit",
                            kd_kernel.closest_hit_plain), \
             mock.patch.object(kd_kernel, "any_hit", kd_kernel.any_hit_plain):
-        img_p, _, _ = kd_frame(scene, cam, SPP, delta=1.0)
+        img_p, _, _ = kd_frame(scene, cam, PARITY_KD_SPP, delta=1.0)
     close = np.isclose(img_k, img_p, rtol=rtol, atol=atol).all(axis=-1)
     flips = int((~close).sum())
     max_err = float(np.abs(img_k - img_p)[close].max())
-    log("parity-kd", res=f"{PARITY_RES}x{PARITY_RES}", spp=SPP,
+    log("parity-kd", res=f"{PARITY_RES}x{PARITY_RES}", spp=PARITY_KD_SPP,
         pixels=close.size, flips=flips, image_max_abs_err=max_err, rtol=rtol,
         atol=atol, plain_render_s=round(time.perf_counter() - t0, 2))
     if flips > close.size // 100:
@@ -1548,7 +1557,8 @@ def phase_materials(dev):
 
 DIRECT_FRAMES = 3      # timed frames of [direct] after a warm-up
 BDPT_SPP = 1           # cut from caustics.py's 2,048 and box.py's 64 spp
-BDPT_FRAMES = 2        # timed frames per scene after a warm-up
+BDPT_FRAMES = 1        # timed frames per scene after a warm-up (2 until
+                       # slice 8)
 BDPT_TWIN_FRAMES = 1   # box's (no kernel) and caustics-kd's (2 until slice 7)
 BDPT_PROFILED = ("caustics", "bench")  # idle share (all four until slice 7)
 BDPT_BENCH_DEPTH = 6
@@ -1728,7 +1738,8 @@ def _bdpt_depth(scene, configure):
 # ---------------------------------------------------------------------------
 # slice 7: runtime instancing and the .obj/.mtl/PNG loaders
 
-INST_FRAMES = 2        # timed frames per scene after a warm-up
+INST_FRAMES = 1        # timed frames per scene after a warm-up (2 until
+                       # slice 8)
 INST_PARITY_RES = 32   # kernel- against plain-routed: the plain test is dense
 INST_DEFAULT_SPP = 30  # one Renderer step at its 2,000,000-lane target
 IO_FRAMES = 2
@@ -1942,6 +1953,95 @@ def phase_io(camera, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the float64 reference mode and the quality harness
+
+QUALITY_CORNELL = (64, 4)   # ``tools/quality.py``'s default configuration
+QUALITY_BVH = (32, 2)       # its ``run_bvh()``
+
+
+def _plain_f64_counts():
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    return {"k2_closest": bvh_kernel.PLAIN_F64["closest"],
+            "k2_any": bvh_kernel.PLAIN_F64["any"],
+            "k3_closest": kd_kernel.PLAIN_F64["closest"],
+            "k3_any": kd_kernel.PLAIN_F64["any"]}
+
+
+def _reset_plain_f64():
+    from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    for table in (bvh_kernel.PLAIN_F64, kd_kernel.PLAIN_F64):
+        for k in table:
+            table[k] = 0
+
+
+def quality_thresholds(name, out):
+    """Every threshold of ``tests/test_quality_f64.py`` on one block of
+    the harness's result (``grad_flipped_rays`` where it has it)."""
+    rays = out["rays"]
+    checks = {
+        "bin_rel_err_mean < 1e-3": out["bin_rel_err_mean"] < 1e-3,
+        "bin_rel_err_p999 < 5e-2": out["bin_rel_err_p999"] < 5e-2,
+        "flipped_rays <= max(2, rays // 100)":
+            out["flipped_rays"] <= max(2, rays // 100),
+        "grad_ad_vs_fd_rel_err < 1e-6": out["grad_ad_vs_fd_rel_err"] < 1e-6,
+        "grad_f32_vs_ref_rel_err < 1e-2":
+            out["grad_f32_vs_ref_rel_err"] < 1e-2,
+    }
+    if "grad_flipped_rays" in out:
+        checks["grad_flipped_rays <= rays // 5"] = \
+            out["grad_flipped_rays"] <= rays // 5
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"quality {name}: {failed}")
+
+
+def phase_quality(dev):
+    """The quality harness (``lumo_tpu_torch/tools/quality.py``) on the
+    card at ``tools/quality.py 64 4``'s configurations: the Cornell box
+    (``run(64, 4)``, dense: no scene query at all) and the instanced,
+    textured blob scene (``run_bvh(32, 2)``), float32 against the float64
+    reference and float64 AD against finite differences.  Prints both
+    results and their wall seconds, and raises unless every threshold of
+    ``tests/test_quality_f64.py`` holds, the blob scene's two float32
+    renders (forward, AD) launched K2 once an instance and bounce for
+    their closest hits, and its six float64 renders (forward, AD, four
+    finite-difference losses) launched no kernel and sent as many closest
+    queries through the float64 plain route."""
+    from lumo_tpu_torch.tools import quality
+    t_phase = time.perf_counter()
+    for name, run, conf in (("cornell", quality.run, QUALITY_CORNELL),
+                            ("bvh", quality.run_bvh, QUALITY_BVH)):
+        _reset_launches()
+        _reset_plain_f64()
+        t0 = time.perf_counter()
+        out = run(*conf, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = _launch_counts(), _plain_f64_counts()
+        log("quality", harness=name, res=conf[0], spp=conf[1],
+            wall_s=round(wall, 3),
+            launches=json.dumps(launches).replace(" ", ""),
+            plain_f64=json.dumps(plain).replace(" ", ""),
+            result=json.dumps(out).replace(" ", ""))
+        quality_thresholds(name, out)
+        if name == "cornell":
+            if any(launches.values()) or any(plain.values()):
+                raise AssertionError(f"quality cornell: the dense box ran "
+                                     f"queries {launches} {plain}")
+            continue
+        # one closest query an instance and bounce of each render
+        per_render = 2 * quality.BVH_DEPTH * conf[1]
+        if (launches["k2_closest"] != 2 * per_render or launches["k2_any"] <= 0
+                or launches["k3_closest"] or launches["k3_any"]
+                or plain["k2_closest"] != 6 * per_render
+                or plain["k2_any"] <= 0 or plain["k3_closest"]
+                or plain["k3_any"]):
+            raise AssertionError(f"quality bvh: K2 launches {launches}, "
+                                 f"float64 plain queries {plain}")
+    log("quality", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2018,6 +2118,7 @@ def main():
     del scene
     phase_instance(camera, dev)
     phase_io(camera, dev)
+    phase_quality(dev)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

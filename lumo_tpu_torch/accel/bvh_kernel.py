@@ -7,12 +7,15 @@ that replaces the TPU kernel ``pallas_bvh._traverse_kernel``; it is
 compiled with nvcc for sm_90a at first use into the repository's
 ``build/`` directory and bound with ctypes.
 
-Dispatch is by device, never by failure: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.  The plain versions
-(``closest_hit_plain``, ``any_hit_plain``) are a chunked dense Woop test
-over the BVH's triangles with ``geometry.intersect.triangle_t`` and an
-argmin (lowest index on ties, as the kernel breaks them); the CPU tests
-use them, and ``chip_smoke.py`` holds the kernel against them on the card.
+Dispatch is by dtype and device, never by failure: a float64 query (the
+reference mode) takes the plain version in float64 on any device
+(``cuda_build.reference_route``, counted in ``PLAIN_F64``); otherwise a
+CPU tensor takes the plain version, a CUDA tensor launches the kernel or
+raises.  The plain versions (``closest_hit_plain``, ``any_hit_plain``)
+are a chunked dense Woop test over the BVH's triangles with
+``geometry.intersect.triangle_t`` and an argmin (lowest index on ties, as
+the kernel breaks them); the CPU tests use them, and ``chip_smoke.py``
+holds the kernel against them on the card.
 ``closest_query`` and ``any_query`` call ``closest_hit`` and ``any_hit``
 through registered operators (``torch.ops.lumo_tpu_torch.bvh_closest`` /
 ``bvh_any``), the route ``scene/trace.py`` takes, so that a checkpointed
@@ -35,7 +38,8 @@ import torch
 from lumo_tpu_torch.accel import cuda_build
 from lumo_tpu_torch.accel.cuda_build import (check_counts, check_no_grad,
                                               check_tensor, count_ptrs, ptr,
-                                              raise_on, stream)
+                                              raise_on, reference_route,
+                                              stream)
 from lumo_tpu_torch.accel.walk import (INFLATE, keep_better, leaf_best, rows,
                                         slab_reciprocals, stack_put,
                                         stack_take)
@@ -54,6 +58,9 @@ MAX_RAYS = 1 << 30
 # Launches of the kernel's entry points since the last reset; the wrappers
 # add one per launch and nothing else touches them.
 LAUNCHES = {"closest": 0, "any": 0, "stats": 0}
+# float64 queries sent to the plain version since the last reset
+# (``cuda_build.reference_route``); they launch nothing
+PLAIN_F64 = {"closest": 0, "any": 0, "stats": 0}
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIB = cuda_build.Library("bvh_traverse", {
@@ -172,7 +179,8 @@ def closest_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     ``t_max`` requires grad: the walk is not differentiated."""
     t_max = rows(t_max, o)
     check_no_grad("BVH closest-hit", o, d, t_max)
-    if o.device.type == "cpu":
+    if (reference_route(o, tri, PLAIN_F64, "closest")
+            or o.device.type == "cpu"):
         return closest_hit_plain(bvh, tri, o, d, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
@@ -189,7 +197,7 @@ def any_hit(bvh, tri, o, d, t_max=INF, counts=None, seen=None):
     """True where any triangle lies in (0, t_max); see :func:`closest_hit`."""
     t_max = rows(t_max, o)
     check_no_grad("BVH any-hit", o, d, t_max)
-    if o.device.type == "cpu":
+    if reference_route(o, tri, PLAIN_F64, "any") or o.device.type == "cpu":
         return any_hit_plain(bvh, tri, o, d, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
@@ -327,6 +335,11 @@ def closest_hit_stats(bvh, tri, o, d, t_max=INF):
     consecutive rays the sum and the maximum over its rays of (inner
     records fetched, leaves entered, triangles tested)."""
     t_max = rows(t_max, o)
+    if reference_route(o, tri, PLAIN_F64, "stats"):
+        # the same walk over the float64 leaf-order vertices (the packed
+        # ``tris`` are float32)
+        return closest_hit_stats_plain(dict(bvh, tris=torch.stack(tri, 1)),
+                                       tri, o, d, t_max)
     if o.device.type == "cpu":
         return closest_hit_stats_plain(bvh, tri, o, d, t_max)
     if o.device.type != "cuda":

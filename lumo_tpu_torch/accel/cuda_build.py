@@ -151,6 +151,29 @@ def check_tensor(name, x, dev, dtype, shape=None, tail=None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def reference_route(o, tri, plain_counts, query) -> bool:
+    """The one branch that sends a traversal query to the float64
+    reference route, chosen by the dtype of the rays ``o`` alone (never
+    by a failure): True for a float64 query, which then takes the plain
+    version in float64 over ``tri``, the scene's own (a, b, c) vertices,
+    on the CPU and on the card alike, and adds one to
+    ``plain_counts[query]``.  False for every other query, which goes on
+    to the device rule: the plain version on a CPU tensor, the kernel on
+    a CUDA tensor, where the kernel's entry points raise on any input
+    that is not float32.  The kernels are float32 only, as the TPU's are;
+    ``config.use_f64`` renders through this route.  The dense float64
+    test is for reference-sized scenes: on the 327,692-triangle bench
+    scene a plain float32 query of 262,144 rays takes about 38 s on an
+    NVIDIA H100 80GB HBM3 at 700 W (``PERF.md``)."""
+    if o.dtype != torch.float64:
+        return False
+    if tri is None or any(x.dtype != torch.float64 for x in tri):
+        raise TypeError(f"a float64 {query} query needs the scene's float64 "
+                        "(a, b, c) vertices")
+    plain_counts[query] += 1
+    return True
+
+
 def check_no_grad(what, o, d, t_max) -> None:
     """Raise when a traversal query is handed rays that require grad: the
     walk is not differentiated, so the caller detaches ``o``, ``d`` and

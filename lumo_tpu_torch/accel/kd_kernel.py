@@ -11,12 +11,16 @@ no counterpart: :func:`pack_kd` lays the flat Wald-Havran tree of
 ``accel/kdtree.py`` out as 8-byte nodes, 4-byte leaf references and one
 48-byte record per triangle (see the kernel's source note).
 
-Dispatch is by device, never by failure: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.  The plain versions
-(``closest_hit_plain``, ``any_hit_plain``) are a per-lane PyTorch walk,
-the counterpart of ``traverse._kd_walk``, over the same packed tables the
-kernel reads, so the CPU tests cover the packer; the dense test of
-``bvh_kernel.closest_hit_plain`` stays the second yardstick.
+Dispatch is by dtype and device, never by failure: a float64 query (the
+reference mode) takes ``bvh_kernel``'s dense plain test over the scene's
+float64 vertices on any device (``cuda_build.reference_route``, counted
+in ``PLAIN_F64``: the packed tables are float32); otherwise a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises.
+The plain versions (``closest_hit_plain``, ``any_hit_plain``) are a
+per-lane PyTorch walk, the counterpart of ``traverse._kd_walk``, over the
+same packed tables the kernel reads, so the CPU tests cover the packer;
+the dense test of ``bvh_kernel.closest_hit_plain`` stays the second
+yardstick.
 ``closest_query`` and ``any_query`` call ``closest_hit`` and ``any_hit``
 through registered operators (``torch.ops.lumo_tpu_torch.kd_closest`` /
 ``kd_any``), the route ``scene/trace.py`` takes.
@@ -28,13 +32,14 @@ import ctypes
 import numpy as np
 import torch
 
-from lumo_tpu_torch.accel import cuda_build
+from lumo_tpu_torch.accel import bvh_kernel, cuda_build
 from lumo_tpu_torch.accel.walk import (INFLATE, keep_better, leaf_best, rows,
                                         slab_reciprocals, stack_put,
                                         stack_take)
 from lumo_tpu_torch.accel.cuda_build import (check_counts, check_no_grad,
                                               check_tensor, count_ptrs, ptr,
-                                              raise_on, stream)
+                                              raise_on, reference_route,
+                                              stream)
 from lumo_tpu_torch.config import INF
 from lumo_tpu_torch.geometry.intersect import ray_setup
 
@@ -46,6 +51,9 @@ IN_PLANE = 1 << 31  # flag of a stack entry that pops with t0 = 0
 # Launches of the kernel's two entry points since the last reset; the
 # wrappers add one per launch and nothing else touches them.
 LAUNCHES = {"closest": 0, "any": 0}
+# float64 queries sent to the dense plain test since the last reset
+# (``cuda_build.reference_route``); they launch nothing
+PLAIN_F64 = {"closest": 0, "any": 0}
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIB = cuda_build.Library("kd_traverse", {
@@ -160,14 +168,18 @@ def closest_hit(kd, o, d, t_max=INF, counts=None, seen=None):
     """Nearest triangle hit in (0, t_max) per ray -> (t (N,), prim (N,)
     int64), prim = -1 and t = INF on a miss.  ``kd`` is a scene's packed
     kd-tree (``nodes``, ``refs``, ``tris``, ``root`` tensors and
-    ``depth``).  ``counts``, a zeroed (4,) int64 CUDA tensor, receives the
-    kernel's node visits and triangle tests and, for each, the sum over
-    warps of the warp's largest lane count; ``seen``, a zeroed (M + R + T,) uint8 CUDA
-    tensor given with ``counts``, receives a 1 for each of the M nodes, R
-    leaf references and T triangles the launch read.  Raises when ``o``,
+    ``depth``) and, for a float64 query, ``tri``: the scene's (a, b, c)
+    vertices in prim order, which it tests.  ``counts``, a zeroed (4,)
+    int64 CUDA tensor, receives the kernel's node visits and triangle
+    tests and, for each, the sum over warps of the warp's largest lane
+    count; ``seen``, a zeroed (M + R + T,) uint8 CUDA tensor given with
+    ``counts``, receives a 1 for each of the M nodes, R leaf references
+    and T triangles the launch read.  Raises when ``o``,
     ``d`` or ``t_max`` requires grad: the walk is not differentiated."""
     t_max = rows(t_max, o)
     check_no_grad("kd closest-hit", o, d, t_max)
+    if reference_route(o, kd.get("tri"), PLAIN_F64, "closest"):
+        return bvh_kernel.closest_hit_plain(None, kd["tri"], o, d, t_max)
     if o.device.type == "cpu":
         return closest_hit_plain(kd, o, d, t_max)
     if o.device.type != "cuda":
@@ -185,6 +197,8 @@ def any_hit(kd, o, d, t_max=INF, counts=None, seen=None):
     """True where any triangle lies in (0, t_max); see :func:`closest_hit`."""
     t_max = rows(t_max, o)
     check_no_grad("kd any-hit", o, d, t_max)
+    if reference_route(o, kd.get("tri"), PLAIN_F64, "any"):
+        return bvh_kernel.any_hit_plain(None, kd["tri"], o, d, t_max)
     if o.device.type == "cpu":
         return any_hit_plain(kd, o, d, t_max)
     if o.device.type != "cuda":
@@ -198,21 +212,27 @@ def any_hit(kd, o, d, t_max=INF, counts=None, seen=None):
 
 # the queries as registered operators, for the selective checkpoint of the
 # fixed-depth integrator (see the same section of ``bvh_kernel``)
-_KD_ARGS = ("Tensor nodes, Tensor refs, Tensor tris, Tensor root, int depth, "
-            "Tensor o, Tensor d, Tensor t_max")
+_KD_ARGS = ("Tensor nodes, Tensor refs, Tensor tris, Tensor root, "
+            "Tensor? a, Tensor? b, Tensor? c, int depth, Tensor o, Tensor d, "
+            "Tensor t_max")
 
 
-def _tree(nodes, refs, tris, root, depth):
-    return {"nodes": nodes, "refs": refs, "tris": tris, "root": root,
+def _tree(nodes, refs, tris, root, a, b, c, depth):
+    tree = {"nodes": nodes, "refs": refs, "tris": tris, "root": root,
             "depth": depth}
+    if a is not None:
+        tree["tri"] = (a, b, c)
+    return tree
 
 
-def _closest_op(nodes, refs, tris, root, depth, o, d, t_max):
-    return closest_hit(_tree(nodes, refs, tris, root, depth), o, d, t_max)
+def _closest_op(nodes, refs, tris, root, a, b, c, depth, o, d, t_max):
+    return closest_hit(_tree(nodes, refs, tris, root, a, b, c, depth), o, d,
+                       t_max)
 
 
-def _any_op(nodes, refs, tris, root, depth, o, d, t_max):
-    return any_hit(_tree(nodes, refs, tris, root, depth), o, d, t_max)
+def _any_op(nodes, refs, tris, root, a, b, c, depth, o, d, t_max):
+    return any_hit(_tree(nodes, refs, tris, root, a, b, c, depth), o, d,
+                   t_max)
 
 
 # held here: torch keeps operator definitions only weakly
@@ -229,19 +249,22 @@ OPS = (torch.ops.lumo_tpu_torch.kd_closest.default,
        torch.ops.lumo_tpu_torch.kd_any.default)
 
 
-def _tables(kd):
-    return kd["nodes"], kd["refs"], kd["tris"], kd["root"], kd["depth"]
+def _tables(kd, tri):
+    return (kd["nodes"], kd["refs"], kd["tris"], kd["root"],
+            *(tri if tri is not None else (None,) * 3), kd["depth"])
 
 
-def closest_query(kd, o, d, t_max):
-    """:func:`closest_hit` through its registered operator."""
-    return torch.ops.lumo_tpu_torch.kd_closest(*_tables(kd), o, d,
+def closest_query(kd, o, d, t_max, tri=None):
+    """:func:`closest_hit` through its registered operator; ``tri``, the
+    scene's (a, b, c) vertices, are what a float64 query tests."""
+    return torch.ops.lumo_tpu_torch.kd_closest(*_tables(kd, tri), o, d,
                                                rows(t_max, o))
 
 
-def any_query(kd, o, d, t_max):
-    """:func:`any_hit` through its registered operator."""
-    return torch.ops.lumo_tpu_torch.kd_any(*_tables(kd), o, d,
+def any_query(kd, o, d, t_max, tri=None):
+    """:func:`any_hit` through its registered operator; ``tri`` as in
+    :func:`closest_query`."""
+    return torch.ops.lumo_tpu_torch.kd_any(*_tables(kd, tri), o, d,
                                            rows(t_max, o))
 
 

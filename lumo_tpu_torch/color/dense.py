@@ -79,9 +79,10 @@ def _interp(lookup, lam):
 
 
 @lru_cache(maxsize=None)
-def device_table(name: str, device: torch.device) -> torch.Tensor:
-    """:func:`table` as a float32 tensor on ``device``, copied once."""
-    return torch.as_tensor(table(name), dtype=torch.float32, device=device)
+def device_table(name: str, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`table` as a ``dtype`` tensor on ``device``, copied once."""
+    return torch.as_tensor(table(name), dtype=dtype, device=device)
 
 
 def sample(values, lam):

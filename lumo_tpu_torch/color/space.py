@@ -105,7 +105,7 @@ def luminance(color, lam):
     """Color (..., 4) at wavelengths (..., 4) -> luminance (...)
     (reference ``color.rs:91-95``)."""
     p = wavelength.pdf(lam)
-    y = dense.sample(dense.device_table("Y", lam.device), lam)
+    y = dense.sample(dense.device_table("Y", lam.device, color.dtype), lam)
     ok = p > 0.0
     contrib = torch.where(ok, y * color / torch.where(ok, p, 1.0), 0.0)
     return _mean4(contrib) / dense.Y_INTEGRAL
@@ -115,8 +115,9 @@ def to_xyz(color, lam):
     """Color (..., 4) sampled at lambda (..., 4) -> XYZ (..., 3)
     (reference ``color.rs:98-107``)."""
     w = _weighted(color, lam)
-    out = torch.stack([_mean4(dense.sample(dense.device_table(k, lam.device), lam) * w)
-                       for k in ("X", "Y", "Z")], dim=-1)
+    out = torch.stack(
+        [_mean4(dense.sample(dense.device_table(k, lam.device, color.dtype),
+                             lam) * w) for k in ("X", "Y", "Z")], dim=-1)
     return out / dense.Y_INTEGRAL
 
 

@@ -1,10 +1,16 @@
-"""Global constants of the PyTorch port and its device rule.
+"""Global constants of the PyTorch port, its float64 switch and its
+device rule.
 
-Counterpart of ``lumo_tpu/config.py``.  The port renders in float32 only
-(the JAX package's float64 CPU reference mode is not ported).  Entry
-points run on the CUDA card unless the caller names another device:
-:func:`resolve_device` raises instead of silently falling back to the
-CPU when no card is visible.
+Counterpart of ``lumo_tpu/config.py``.  The production path renders in
+float32.  ``use_f64(True)`` switches the precision-dependent constants
+(:func:`epsilon`, :func:`machine_eps_half`, :func:`gamma_bound`) to
+float64, the reference mode: scenes, cameras and rays are then built in
+``float_dtype()`` and every scene query takes the plain float64 route
+(the CUDA kernels are float32 only; ``accel/cuda_build.reference_route``).
+Torch has no process-global float64 flag, so the switch is all there is
+to flip.  Entry points run on the CUDA card unless the caller names
+another device: :func:`resolve_device` raises instead of silently
+falling back to the CPU when no card is visible.
 """
 from __future__ import annotations
 
@@ -22,14 +28,34 @@ INF = float(np.inf)
 RADIANCE = 0
 IMPORTANCE = 1
 
+_F64 = False    # the float64 switch (:func:`use_f64`)
+
+
+def use_f64(enable: bool = True) -> None:
+    """Switch the renderer's constants to float64 (the reference mode);
+    build the scene, camera and rays in ``float_dtype()`` as well."""
+    global _F64
+    _F64 = bool(enable)
+
+
+def float_dtype() -> torch.dtype:
+    return torch.float64 if _F64 else torch.float32
+
+
+def np_float_dtype():
+    return np.float64 if _F64 else np.float32
+
 
 def epsilon() -> float:
-    """Intersection epsilon for float32 (reference ``src/lib.rs:61-67``)."""
-    return 1e-4
+    """Intersection epsilon; the reference uses 1e-10 for float64, 1e-4 for
+    float32 (``src/lib.rs:61-67``)."""
+    return 1e-10 if _F64 else 1e-4
 
 
 def machine_eps_half() -> float:
-    return float(np.finfo(np.float32).eps) / 2.0
+    """Machine epsilon / 2 of the switch's precision, for the gamma error
+    bounds (PBR section 3.9)."""
+    return float(np.finfo(np_float_dtype()).eps) / 2.0
 
 
 def gamma_bound(n: int) -> float:

@@ -37,7 +37,6 @@ CYLINDER = 3
 SPHERE = 4
 
 PI = math.pi
-_F32_EPS = float(np.finfo(np.float32).eps)
 
 
 def _to_local(o, d, rot, trans):
@@ -104,7 +103,7 @@ def analytic_t(o, d, kind, rot, trans, radius, height, t_min, t_max):
     # have none
     y_lo = oy + lo * dy
     y_hi = oy + hi * dy
-    eps_q = 32.0 * _F32_EPS * torch.clamp(
+    eps_q = 32.0 * torch.finfo(o.dtype).eps * torch.clamp(
         torch.abs(torch.where(ok_q, hi, 1.0)), min=1.0)
     in_lo = (is_sph | ((y_lo >= 0.0) & (y_lo <= h))) \
         & (lo > t_min + eps_q) & (lo < t_max)
@@ -112,7 +111,8 @@ def analytic_t(o, d, kind, rot, trans, radius, height, t_min, t_max):
         & (hi > t_min + eps_q) & (hi < t_max)
     t_q = torch.where(ok_q & in_lo, lo, torch.where(ok_q & in_hi, hi, INF))
 
-    eps_pl = 32.0 * _F32_EPS * torch.clamp(torch.abs(t_pl), min=1.0)
+    eps_pl = 32.0 * torch.finfo(o.dtype).eps * torch.clamp(torch.abs(t_pl),
+                                                           min=1.0)
     ok_pl = ok_pl & (t_pl > t_min + eps_pl) & (t_pl < t_max)
     return torch.where(is_planar, torch.where(ok_pl, t_pl, INF), t_q)
 

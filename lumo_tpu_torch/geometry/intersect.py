@@ -16,10 +16,6 @@ import torch
 from lumo_tpu_torch.config import INF, gamma_bound
 from lumo_tpu_torch.geometry.onb import cross, dot, normalize
 
-_F32_TINY = float(torch.finfo(torch.float32).tiny)
-_F32_EPS = float(torch.finfo(torch.float32).eps)
-
-
 def _permute_axes(v, kz):
     """Cyclically permute xyz so that axis kz lands in z."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -101,7 +97,7 @@ def triangle_t(o, kz, shear, a, b, c, t_min, t_max):
     d_e = 2.0 * (gamma_bound(2) * max_x * max_y + d_y * max_x + d_x * max_y)
     max_e = torch.maximum(torch.abs(e0), torch.maximum(torch.abs(e1),
                                                        torch.abs(e2)))
-    abs_det = torch.clamp(torch.abs(det), min=_F32_TINY)
+    abs_det = torch.clamp(torch.abs(det), min=torch.finfo(t.dtype).tiny)
     d_t = 3.0 * (gamma_bound(3) * max_e * max_z + d_e * max_z
                  + d_z * max_e) / abs_det
     t = torch.where(t <= t_min + d_t, INF, t)
@@ -154,7 +150,8 @@ def sphere_t(o, d, center, radius, t_min, t_max):
     t0 = torch.where(torch.abs(q) > 0, cc / torch.where(q == 0, 1.0, q), INF)
     lo = torch.minimum(t0, q)
     hi = torch.maximum(t0, q)
-    eps = 32.0 * _F32_EPS * torch.clamp(torch.abs(hi), min=1.0)
+    eps = 32.0 * torch.finfo(o.dtype).eps * torch.clamp(torch.abs(hi),
+                                                        min=1.0)
     lo_ok = ok & (lo > t_min + eps) & (lo < t_max)
     hi_ok = ok & (hi > t_min + eps) & (hi < t_max)
     return torch.where(lo_ok, lo, torch.where(hi_ok, hi, INF))
@@ -166,7 +163,8 @@ def sphere_detail(o, d, t, center, radius):
     ``sphere.rs:63-64``)."""
     rel = o + t[..., None] * d - center
     rel = rel * (radius[..., None] / torch.clamp(
-        torch.linalg.vector_norm(rel, dim=-1, keepdim=True), min=_F32_TINY))
+        torch.linalg.vector_norm(rel, dim=-1, keepdim=True),
+        min=torch.finfo(o.dtype).tiny))
     p = center + rel
     ng = rel / radius[..., None]
     theta = torch.arccos(torch.clamp(-ng[..., 1], -1.0, 1.0))

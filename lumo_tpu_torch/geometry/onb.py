@@ -8,8 +8,6 @@ from __future__ import annotations
 
 import torch
 
-_F32_TINY = float(torch.finfo(torch.float32).tiny)
-
 
 def safe_sqrt(x, eps=1e-24):
     return torch.sqrt(torch.clamp(x, min=eps))
@@ -31,7 +29,7 @@ def norm(v):
 
 def normalize(v, eps=0.0):
     n = safe_sqrt(dot(v, v))[..., None]
-    return v / torch.clamp(n, min=eps if eps else _F32_TINY)
+    return v / torch.clamp(n, min=eps if eps else torch.finfo(v.dtype).tiny)
 
 
 def onb_frame(w):

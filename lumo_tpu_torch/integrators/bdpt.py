@@ -40,6 +40,7 @@ from lumo_tpu_torch.config import IMPORTANCE, RADIANCE, epsilon
 from lumo_tpu_torch.geometry import intersect as geo
 from lumo_tpu_torch.geometry.onb import dot, norm, normalize
 from lumo_tpu_torch.integrators import path_trace
+from lumo_tpu_torch.integrators.common import shrink
 from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _randfloat
 from lumo_tpu_torch.scene import trace
 from lumo_tpu_torch.scene.materials import BLANK, VOLUMETRIC
@@ -64,9 +65,6 @@ _S_ON1 = 0xBF58476D
 _S_DIR0 = 0xFD7046C5
 _S_DIR1 = 0xD3A2646C
 _S_OCC = 0x68BC21EB
-
-# 1 - 8 float32 ulp(1): a connection ray stops short of its far vertex
-_SHRINK = 1.0 - 8.0 * float(torch.finfo(torch.float32).eps)
 
 
 def _sa_to_area(pdf, xo, xi, wi, ngi):
@@ -470,7 +468,8 @@ def _connect(scene, lam, lp, cp, mp_l, mp_c, rng_con, s, ts):
     rng = torch.cat([_salted(rng_con, s * 64 + t + 300, 0xC2B2AE35)
                      for t in ts])
     occ = trace.occluded(scene, ro, wi_lc,
-                         torch.where(mask, dist * _SHRINK, 0.0).detach(),
+                         torch.where(mask, dist * shrink(dist.dtype),
+                                     0.0).detach(),
                          rng=rng, salt=_S_OCC)
     p_sct = (_vertex_pdf(cl, cl["wo"], wi, lam, mp_cl)
              * _vertex_pdf(ll, ll["wo"], -wi, lam, mp_ll))
@@ -554,7 +553,8 @@ def integrate(scene, camera, o, d, lam, ray_key=None, generator=None,
         ro = geo.offset_ray_origin(cl["p"], cl["err"], cl["ng"], wi)
         lh = trace.light_hit(scene, light, ro, wi)
         mask = cl["valid"] & ~cl["delta"] & (cl["light"] < 0) & lh["valid"]
-        t_max = torch.where(mask, (lh["t"] - epsilon()) * _SHRINK, 0.0)
+        t_max = torch.where(mask, (lh["t"] - epsilon()) * shrink(ro.dtype),
+                            0.0)
         occ = trace.occluded(scene, ro, wi, t_max.detach(), rng=rng_t,
                              salt=_S_OCC)
         p_sct = _vertex_pdf(cl, cl["wo"], wi, lam, mp_cl)
@@ -589,7 +589,8 @@ def integrate(scene, camera, o, d, lam, ray_key=None, generator=None,
         dist = norm(ll["p"] - co)
         mask = ll["valid"] & ~ll["delta"] & cam_ok
         occ = trace.occluded(scene, co, cd,
-                             torch.where(mask, dist * _SHRINK, 0.0).detach(),
+                             torch.where(mask, dist * shrink(dist.dtype),
+                                         0.0).detach(),
                              rng=rng_s, salt=_S_OCC)
         p_sct = _vertex_pdf(ll, ll["wo"], -cd, lam, mp_ll)
         p_imp = camera.pdf_importance(co, cd, ll["p"])

@@ -20,8 +20,6 @@ from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _randfloat
 from lumo_tpu_torch.scene import trace
 
 _TINY = 1e-30
-# 1 - 8 float32 ulp(1): shrinks the shadow ray so it stops short of the light
-_SHRINK = 1.0 - 8.0 * float(torch.finfo(torch.float32).eps)
 
 # per-purpose draw salts (``lumo_tpu/integrators/common.py:29-36``)
 S_LIGHT = 0x2545F491
@@ -33,6 +31,12 @@ S_SQ3 = 0x165667B1
 # salt the medium's free flight on the light- and BSDF-sampled shadow rays
 S_OCC = 0xD3A2646C
 S_OCCB = 0xFD7046C5
+
+
+def shrink(dtype) -> float:
+    """1 - 8 ulp(1) of ``dtype`` (the rays' own precision): shrinks a
+    shadow or connection ray so that it stops short of its far end."""
+    return 1.0 - 8.0 * torch.finfo(dtype).eps
 
 
 def _fold(rng, i):
@@ -71,7 +75,7 @@ def _shadow_branch(scene, mp, wo, wi, hit, light, lam, light_sampled, rng,
     # visibility is a discrete decision: its t range is detached
     # (``lumo_tpu/integrators/common.py:88-90``)
     t_max = ((torch.where(lh["valid"] & hit["valid"], lh["t"], 0.0)
-              - epsilon()) * _SHRINK).detach()
+              - epsilon()) * shrink(o.dtype)).detach()
     occ = trace.occluded(scene, o, wi, t_max, rng=rng, salt=salt)
     visible = lh["valid"] & ~occ
     p_lig = trace.sample_towards_pdf(scene, light, o, wi, lh["p"], lh["ng"])

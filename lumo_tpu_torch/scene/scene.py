@@ -72,7 +72,8 @@ def _not_ported(what: str, item: int):
 class SceneData:
     """Device scene.  Primitive ids are global: [0, T) triangles, [T, T+S)
     spheres, then the analytic shapes; index tables are int64, float
-    tables float32."""
+    tables in the build's dtype (float32, or float64 in the reference
+    mode), the kernels' packed tables float32."""
     tri_a: torch.Tensor
     tri_b: torch.Tensor
     tri_c: torch.Tensor
@@ -660,7 +661,9 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
     flat kd-tree tables ``split, axis, right, first, count, prims, lo, hi``
     (and optionally ``depth``) of a scene built with ``accel="kdtree"``
     and is kept only in the kd kernel's layout (``kd_kernel.pack_kd``).
-    The values go through unchanged; index tables widen to int64."""
+    The values go through unchanged; index tables widen to int64, float
+    tables take ``dtype`` (a JAX float64 scene carries over with
+    ``dtype=np.float64``), the kernels' packed tables stay float32."""
     from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
     device = resolve_device(device)
 
@@ -671,6 +674,10 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
         if np.issubdtype(x.dtype, np.integer):
             return torch.as_tensor(x.astype(np.int64), device=device)
         return torch.as_tensor(x.astype(dtype), device=device)
+
+    # the kernels' packed tables stay float32 whatever ``dtype`` is: the
+    # kernels are float32 only, and a float64 query never reads them
+    packed = lambda x: torch.as_tensor(x, device=device)
 
     kinds = frozenset(int(k) for k in np.unique(np.asarray(
         fields["materials"]["kind"])))
@@ -688,8 +695,8 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
         """A BVH's binary tables and leaf-order triangles in the kernel's
         layout."""
         t = {k: np.asarray(tables[k]) for k in BVH_KEYS}
-        return {"nodes": tens(bvh_kernel.pack_nodes(t)),
-                "tris": tens(bvh_kernel.pack_tris(
+        return {"nodes": packed(bvh_kernel.pack_nodes(t)),
+                "tris": packed(bvh_kernel.pack_tris(
                     *(np.asarray(x, np.float32) for x in (a, b, c)))),
                 "depth": int(tables["depth"]) if "depth" in tables
                 else _bvh_depth(t["right"], t["count"])}
@@ -709,12 +716,11 @@ def from_numpy(fields: dict, bvh: Optional[dict], device=None,
         if bvh is not None:
             raise ValueError("a scene has a BVH or a kd-tree, not both")
         k = {key: np.asarray(kd[key]) for key in KD_KEYS}
-        packed = kd_kernel.pack_kd(
+        kd_np = kd_kernel.pack_kd(
             k, *(np.asarray(fields[f"tri_{v}"], np.float32) for v in "abc"))
         kd_dev = {
-            "nodes": torch.as_tensor(packed["nodes"], device=device),
-            "refs": torch.as_tensor(packed["refs"], device=device),
-            "tris": tens(packed["tris"]), "root": tens(packed["root"]),
+            **{key: packed(kd_np[key])
+               for key in ("nodes", "refs", "tris", "root")},
             "depth": int(kd["depth"]) if "depth" in kd else
             kd_kernel.kd_depth(k["axis"], k["right"])}
     return SceneData(

@@ -67,8 +67,9 @@ QUERY_OPS = frozenset(bvh_kernel.OPS + kd_kernel.OPS)
 
 
 def _bvh_tris(scene: SceneData):
-    """The BVH's triangles, as its plain version reads them (detached:
-    the walk is not differentiated)."""
+    """The triangles under the BVH (all of them under a kd-tree), in the
+    scene's dtype, as the plain versions read them (detached: the walk is
+    not differentiated)."""
     n = scene.n_bvh_tris
     return tuple(x[:n].detach() for x in (scene.tri_a, scene.tri_b,
                                           scene.tri_c))
@@ -186,7 +187,7 @@ def _tree_closest(scene: SceneData, o, d, t_max):
     """:func:`_closest` of a scene with a tree, before the groups."""
     if scene.kdtree is not None:
         t_k, p = kd_kernel.closest_query(scene.kdtree, o.detach(), d.detach(),
-                                         t_max.detach())
+                                         t_max.detach(), _bvh_tris(scene))
         t, prim = _hit_t(scene, o, d, t_k, p), torch.where(p < 0, 0, p)
     else:
         # split-out walls: dense test whose hit distance seeds the walk's
@@ -479,7 +480,8 @@ def occluded(scene: SceneData, o, d, t_max, rng=None, salt=0):
         o_s, d_s, tm = o.detach(), d.detach(), t_max.detach()
         occ_huge = None
         if scene.kdtree is not None:
-            occ = kd_kernel.any_query(scene.kdtree, o_s, d_s, tm)
+            occ = kd_kernel.any_query(scene.kdtree, o_s, d_s, tm,
+                                      _bvh_tris(scene))
         else:
             if scene.n_bvh_tris < scene.n_tris:
                 occ_huge = torch.isfinite(_wall_t(scene, o_s, d_s,

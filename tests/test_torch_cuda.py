@@ -117,6 +117,47 @@ def test_render_through_kernel_matches_plain(card):
     assert float(r_k.sum()) > 0.0
 
 
+@pytest.mark.parametrize("accel", ["bvh", "kdtree"])
+def test_float64_queries_take_the_plain_route(card, accel):
+    """A float64 scene's closest and any-hit queries on the card take the
+    float64 plain route: no kernel launch, one plain query each counted,
+    prims, hit masks and occlusion equal to the CPU's float64 answers and
+    t within rtol 1e-12; a float16 query still raises at the kernel's
+    entry point."""
+    from lumo_tpu_torch import config
+    from lumo_tpu_torch.scene import trace
+    mod = kd_kernel if accel == "kdtree" else bvh_kernel
+    o, d = (torch.as_tensor(x, dtype=torch.float64)
+            for x in rays_into_box(4096, 11))
+    t_max = torch.linspace(0.1, 3.0, 4096, dtype=torch.float64)
+    config.use_f64(True)
+    try:
+        got = []
+        for dev in ("cpu", card):
+            scene = blob_box("lumo_tpu_torch", 2).build(
+                accel=accel, dtype=np.float64, device=dev)
+            launches, plain = dict(mod.LAUNCHES), dict(mod.PLAIN_F64)
+            hit = trace.intersect(scene, o.to(dev), d.to(dev))
+            occ = trace.occluded(scene, o.to(dev), d.to(dev), t_max.to(dev))
+            assert mod.LAUNCHES == launches
+            assert all(mod.PLAIN_F64[k] == plain[k] + 1
+                       for k in ("closest", "any"))
+            got.append((hit["prim"].cpu(), hit["valid"].cpu(),
+                        hit["t"].cpu(), occ.cpu()))
+    finally:
+        config.use_f64(False)
+    (p_c, v_c, t_c, occ_c), (p_g, v_g, t_g, occ_g) = got
+    assert t_g.dtype == torch.float64 and int(v_c.sum()) > 1000
+    assert torch.equal(p_g, p_c) and torch.equal(v_g, v_c)
+    assert torch.equal(occ_g, occ_c)
+    torch.testing.assert_close(t_g[v_c], t_c[v_c], rtol=1e-12, atol=0.0)
+    half = o.to(card, torch.float16)
+    args = ((scene.kdtree,) if accel == "kdtree"
+            else (scene.bvh, trace._bvh_tris(scene)))
+    with pytest.raises(TypeError, match="float32"):
+        mod.closest_hit(*args, half, half, 1.0)
+
+
 def test_kernel_on_flattened_instance_rays_matches_plain(card):
     """K2 on the rays of an instanced group's flattened query
     (``trace._flat_rays``): 8,192 world rays in the local spaces of eight
