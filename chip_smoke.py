@@ -44,7 +44,15 @@ paths over ``bench.py``'s scenes at 256x256:
   float64 reference mode and float64 AD against finite differences on the
   Cornell box and an instanced, textured blob scene, whose float32 renders
   go through K2 and whose float64 renders through the plain float64
-  route, held to every threshold of ``tests/test_quality_f64.py``.
+  route, held to every threshold of ``tests/test_quality_f64.py``;
+- rendering over several devices (``[devices]``): two gloo ranks sharing
+  the card (``parallel.distributed.initialize(..., backend="gloo")``,
+  started with ``torch.multiprocessing``'s spawn method) render the
+  327,692-triangle scene through ``Renderer(...).devices(2)`` (path in
+  batch and stream mode, direct light, BDPT) and take a ``pmean``'d
+  gradient, each launching K2 on half of every query, held against one
+  device; one NCCL rank runs ``mesh.shard_step`` against the one-device
+  step; NCCL's refusal of two ranks on one card is checked.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -58,6 +66,7 @@ non-zero without one, or outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1564,18 +1573,25 @@ BDPT_PROFILED = ("caustics", "bench")  # idle share (all four until slice 7)
 BDPT_BENCH_DEPTH = 6
 
 
-def _timed_frames(phase, name, accel, frame, n_frames, res):
+def _timed_frames(phase, name, accel, frame, n_frames, res, keep=None):
     """A warm-up frame, then ``n_frames`` timed ones with the launch
     counts reset just before and read just after each, and the peak
     device memory of the last: rays/s (median, fastest, slowest), launches
     a frame (equal in every frame, of the scene's kernel only), splats,
-    finiteness."""
+    finiteness.  With a dict ``keep``, the last frame's image, rays, wall
+    seconds, launches and K2 query sizes go into it (``[devices]``'s
+    one-device reference)."""
     frame()
     walls, rays, per_frame, splats = [], [], [], []
-    for _ in range(n_frames):
+    for i in range(n_frames):
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        img, r, wall, _, sp = frame()
+        # the query sizes' patch is entered at once: only on the kept frame
+        stack, sizes = (_k2_query_sizes() if keep is not None
+                        and i == n_frames - 1
+                        else (contextlib.nullcontext(), None))
+        with stack:
+            img, r, wall, _, sp = frame()
         per_frame.append(_launch_counts())
         if img.shape != (res, res, 3) or not np.isfinite(img).all():
             raise AssertionError(f"{phase} {name}: wrong shape or non-finite")
@@ -1590,6 +1606,9 @@ def _timed_frames(phase, name, accel, frame, n_frames, res):
     if (k2 > 0, k3 > 0) != want or any(f != launches for f in per_frame):
         raise AssertionError(f"{phase} {name}: launches per frame "
                              f"{per_frame}")
+    if keep is not None:
+        keep.update(image=img, rays=rays[-1], wall=walls[-1],
+                    launches=per_frame[-1], sizes=sizes)
     rate = sorted(r / w for r, w in zip(rays, walls))
     log(phase, scene=name, accel=accel, res=f"{res}x{res}",
         frames=n_frames, warmup_frames=1,
@@ -1622,7 +1641,7 @@ def _routed_parity(phase, name, accel, frame, rtol=1e-5, atol=1e-6):
     return img_k
 
 
-def phase_direct(scenes, camera, dev):
+def phase_direct(scenes, camera, dev, refs):
     """The direct-light integrator through ``Renderer(scene,
     camera).integrator("direct").samples(4).render()`` on the
     327,692-triangle scene built as BVH (K2) and as kd-tree (K3) at
@@ -1630,7 +1649,8 @@ def phase_direct(scenes, camera, dev):
     launches a frame, the idle share of one profiled frame, finiteness;
     then at 64^2 (1 spp, square filter) the kernel-routed image against
     the plain-routed one (rtol 1e-5, atol 1e-6, flips counted) and the K3
-    image against the K2 image."""
+    image against the K2 image.  The last K2 frame goes into
+    ``refs["direct"]``."""
     from lumo_tpu_torch.camera import build_camera
     t_phase = time.perf_counter()
     small = build_camera(resolution=(PARITY_RES, PARITY_RES), device=dev)
@@ -1638,8 +1658,9 @@ def phase_direct(scenes, camera, dev):
     launches = {}
     for accel, scene in scenes.items():
         frame = lambda: integrator_frame(scene, camera, "direct", SPP)
-        launches[accel] = _timed_frames("direct", "bench", accel, frame,
-                                        DIRECT_FRAMES, RES)
+        launches[accel] = _timed_frames(
+            "direct", "bench", accel, frame, DIRECT_FRAMES, RES,
+            keep=refs.setdefault("direct", {}) if accel == "bvh" else None)
         idle_share(f"direct-profile-{accel}", lambda: frame()[2])
         images[accel] = _routed_parity(
             "direct", "bench", accel, lambda: integrator_frame(
@@ -1653,7 +1674,7 @@ def phase_direct(scenes, camera, dev):
     return launches
 
 
-def phase_bdpt(bench, camera, dev):
+def phase_bdpt(bench, camera, dev, refs):
     """The bidirectional integrator through ``Renderer(scene,
     camera).integrator("bdpt")`` on ``examples/caustics.py``'s scene at
     its 512^2 (``bdpt_depth`` automatic: 12 with glass) built as BVH (K2)
@@ -1666,7 +1687,8 @@ def phase_bdpt(bench, camera, dev):
     BDPT_PROFILED.  Then at
     64^2 (1 spp, fixed Russian-roulette threshold, square filter) the K2
     images against the plain-routed ones and caustics' K3 image against
-    its K2 image (rtol 1e-5, atol 1e-6, flips counted)."""
+    its K2 image (rtol 1e-5, atol 1e-6, flips counted).  The last frame
+    of the 327,692-triangle scene goes into ``refs["bdpt"]``."""
     from lumo_tpu_torch import film
     from lumo_tpu_torch.camera import build_camera
     t_phase = time.perf_counter()
@@ -1697,7 +1719,8 @@ def phase_bdpt(bench, camera, dev):
         launches[name] = _timed_frames(
             "bdpt", name, accel, frame,
             BDPT_TWIN_FRAMES if name in ("box", "caustics-kd")
-            else BDPT_FRAMES, res)
+            else BDPT_FRAMES, res,
+            keep=refs.setdefault("bdpt", {}) if name == "bench" else None)
         if name in BDPT_PROFILED:
             idle_share(f"bdpt-profile-{name}", lambda: frame()[2])
         if accel == "dense":
@@ -1742,7 +1765,7 @@ INST_FRAMES = 1        # timed frames per scene after a warm-up (2 until
                        # slice 8)
 INST_PARITY_RES = 32   # kernel- against plain-routed: the plain test is dense
 INST_DEFAULT_SPP = 30  # one Renderer step at its 2,000,000-lane target
-IO_FRAMES = 2
+IO_FRAMES = 1          # 2 until slice 9
 
 
 def instance_transforms(n):
@@ -2042,6 +2065,373 @@ def phase_quality(dev):
     log("quality", phase_s=round(time.perf_counter() - t_phase, 1))
 
 
+# ---------------------------------------------------------------------------
+# slice 9: rendering over several devices (torch.distributed)
+
+DEV_WORLD = 2          # gloo ranks sharing the one card
+DEV_CASES = ("path", "stream", "direct", "bdpt")
+DEV_TIMEOUT_S = 300    # the longest wait for the ranks of one spawn
+DEV_PSUM_REPS = 5      # timed all_reduces of a film after a warm-up
+DEV_LABEL = "two processes on one card; not a multi-card scaling figure"
+
+
+def spawn_ranks(fn, world, args, timeout):
+    """Run ``fn(rank, world, *args)`` in ``world`` processes started with
+    the spawn method (this process holds a CUDA context, so never fork)
+    and wait for all: a rank that raises stops the others and raises
+    here, and ranks still running after ``timeout`` seconds are stopped
+    and raise."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            raise TimeoutError(f"ranks still running after {timeout} s")
+
+
+def _k2_query_sizes():
+    """(context, sizes): inside the context every K2 query's ray count is
+    appended to ``sizes["closest"]`` or ``sizes["any"]``."""
+    from lumo_tpu_torch.accel import bvh_kernel
+    sizes = {"closest": [], "any": []}
+    stack = contextlib.ExitStack()
+    for kind in sizes:
+        real = getattr(bvh_kernel, f"{kind}_hit")
+
+        def wrapped(bvh, tri, o, *args, _real=real, _kind=kind, **kwargs):
+            sizes[_kind].append(int(o.shape[0]))
+            return _real(bvh, tri, o, *args, **kwargs)
+
+        stack.enter_context(mock.patch.object(bvh_kernel, f"{kind}_hit",
+                                              wrapped))
+    return stack, sizes
+
+
+def devices_configure(case, n_dev):
+    """The Renderer settings of a ``[devices]`` case over ``n_dev``
+    devices.  The stream takes the fixed Russian-roulette threshold 1:
+    its adaptive threshold follows each rank's own running stats while it
+    runs (as the JAX package's does), so only at a fixed threshold is
+    each sample's radiance the same however the samples are split."""
+    def configure(r):
+        r.devices(n_dev)
+        if case == "stream":
+            r.stream().fixed_rr_delta(1.0)
+        elif case == "bdpt":
+            r.bdpt_depth(BDPT_BENCH_DEPTH)
+    return configure
+
+
+def devices_frames(scene, camera, n_dev, cases=DEV_CASES):
+    """Each of ``cases`` through ``Renderer(scene,
+    camera)...devices(n_dev).render()``: image, rays (2 x sum of this
+    process's path depths, not counted in the stream; the batch path
+    after a warm-up frame), wall
+    seconds, K2/K3 launches (counts set to 0 just before and read just
+    after) and the ray count of every K2 query."""
+    out = {}
+    for case in cases:
+        kind = "path" if case == "stream" else case
+        frame = lambda: integrator_frame(
+            scene, camera, kind, 1 if case == "bdpt" else SPP,
+            configure=devices_configure(case, n_dev))
+        if case == "path":
+            frame()
+        stack, sizes = _k2_query_sizes()
+        _reset_launches()
+        with stack:
+            img, rays, wall, _, _ = frame()
+        out[case] = {"image": img, "rays": rays, "wall": wall,
+                     "launches": _launch_counts(), "sizes": sizes}
+    return out
+
+
+def devices_grads(scene, camera, block, mesh=None):
+    """Gradients of mean(r^2) at fixed depth 2 over the lanes ``block``
+    of the 262,144-lane first-bounce wavefront in every float leaf of the
+    material table (``tests/test_parallel.py``'s loss), ``pmean``'d over
+    ``mesh`` when given."""
+    import dataclasses
+    from lumo_tpu_torch.integrators import path_trace
+    from lumo_tpu_torch.parallel import mesh as mesh_mod
+    o, d, lam, rk = (x[block] for x in camera_wavefront(
+        camera, camera.resolution[0], SPP, scene.device))
+    mats = {k: v.detach().clone().requires_grad_(True)
+            for k, v in scene.materials.items() if v.is_floating_point()}
+    sc = dataclasses.replace(scene, materials={**scene.materials, **mats})
+    r = path_trace.integrate(sc, o, d, lam, ray_key=rk, fixed_depth=2)[0]
+    g = torch.autograd.grad(loss_r2(r, None, None), list(mats.values()),
+                            allow_unused=True)
+    grads = {k: torch.zeros_like(v) if gk is None else gk
+             for (k, v), gk in zip(mats.items(), g)}
+    return mesh_mod.pmean(grads, mesh) if mesh is not None else grads
+
+
+def psum_ms(mesh, res, dev):
+    """Mean ms of ``mesh.psum`` of a ``res``^2 film triplet, its stats and
+    a ray count (the tree a step sums: one ``all_reduce`` of the float32
+    leaves, one of the int64 count) over DEV_PSUM_REPS after a warm-up,
+    and the bytes they carry."""
+    from lumo_tpu_torch import film
+    from lumo_tpu_torch.parallel import mesh as mesh_mod
+    tree = (film.new_film((res, res), device=dev),
+            {k: torch.zeros(res * res, device=dev)
+             for k in ("f", "f2", "cost", "n")},
+            torch.zeros((), dtype=torch.int64, device=dev))
+    mesh_mod.psum(tree, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEV_PSUM_REPS):
+        mesh_mod.psum(tree, mesh)
+    torch.cuda.synchronize()
+    n = sum(x.numel() * x.element_size()
+            for x in (*tree[0], *tree[1].values(), tree[2]))
+    return (time.perf_counter() - t0) / DEV_PSUM_REPS * 1e3, n
+
+
+def devices_rank(rank, world, init_url, out_dir, device, res):
+    """One rank of ``[devices]``: (a) joins the gloo group on ``device``,
+    builds the bench scene, renders every case over the world, takes its
+    block of the gradient and the ``pmean``, times a film's
+    ``all_reduce``, and saves it all to ``out_dir/rank{rank}.pt``; then
+    (c) :func:`nccl_refusal`."""
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.parallel import distributed
+    from lumo_tpu_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    distributed.initialize(coordinator=init_url, num_processes=world,
+                           process_id=rank, backend="gloo", device=device)
+    try:
+        dev = distributed.device()
+        scene = bench_scene(dev)
+        camera = build_camera(resolution=(res, res), device=dev)
+        mesh = mesh_mod.make_mesh()
+        out = {"summary": distributed.process_summary(),
+               "frames": devices_frames(scene, camera, world)}
+        n = res * res * SPP
+        out["grads"] = {k: v.cpu() for k, v in devices_grads(
+            scene, camera, slice(rank * n // world, (rank + 1) * n // world),
+            mesh).items()}
+        out["psum_ms"], out["psum_bytes"] = psum_ms(mesh, res, dev)
+        out["wall_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    nccl_refusal(rank, world, init_url + "-nccl", out_dir)
+
+
+def nccl_refusal(rank, world, init_url, out_dir):
+    """One of two NCCL ranks on the one card: the first collective is
+    expected to fail (NCCL refuses two ranks on one GPU); saves the error
+    it raised, or that none was raised, to ``out_dir/rank{rank}.txt``."""
+    import torch.distributed as dist
+    from lumo_tpu_torch.parallel import distributed
+    distributed.initialize(coordinator=init_url, num_processes=world,
+                           process_id=rank, backend="nccl", device="cuda:0")
+    msg = "no error"
+    try:
+        x = torch.ones(1, device="cuda:0")
+        try:
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+        except dist.DistBackendError as e:     # the expected refusal
+            msg = str(e)
+        with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+            f.write(msg)
+    finally:
+        distributed.shutdown()
+
+
+def _devices_check(phase, case, got, want, rtol, atol):
+    close = np.isclose(got, want, rtol=rtol, atol=atol)
+    err = float(np.abs(got - want).max())
+    log(phase, case=case, compare="two-ranks-vs-one-device",
+        elements=close.size, outside=int((~close).sum()),
+        max_abs_err=err, rtol=rtol, atol=atol)
+    if not close.all():
+        raise AssertionError(f"{phase} {case}: the two-rank result and the "
+                             f"one-device result disagree")
+    return err
+
+
+def _check_rank_launches(case, rank, frame, one):
+    """Every rank launched K2 closest and any, and each of its K2 queries
+    took half the one-device query's rays."""
+    launches, sizes = frame["launches"], frame["sizes"]
+    halves = {k: sorted({s // DEV_WORLD for s in one["sizes"][k]})
+              for k in sizes}
+    if (launches["k2_closest"] <= 0 or launches["k2_any"] <= 0
+            or {k: sorted(set(v)) for k, v in sizes.items()} != halves):
+        raise AssertionError(f"devices {case} rank {rank}: launches "
+                             f"{launches}, K2 query sizes "
+                             f"{ {k: sorted(set(v)) for k, v in sizes.items()} }"
+                             f" against the one-device halves {halves}")
+
+
+def phase_devices(scene, camera, dev, refs):
+    """Slice 9: rendering over several devices on torch.distributed.
+
+    (a) DEV_WORLD gloo ranks on the one card (``initialize(...,
+    backend="gloo", device="cuda:0")``, started by
+    ``torch.multiprocessing.spawn``), each building the bench scene and
+    rendering it at 256^2 through ``Renderer(...).devices(2)``: the path
+    integrator at 4 spp in batch and in stream mode, the direct-light
+    integrator and BDPT at depth 6 and 1 spp; then the gradient of
+    mean(r^2) at fixed depth 2 over its half of the 262,144 first-bounce
+    lanes, ``pmean``'d.  Held against the same renders and gradient on one
+    device in this process (images rtol 1e-4, atol 1e-5; gradients rtol
+    2e-4, atol 1e-6), both ranks' images bit-equal, every rank launching K2
+    closest and any on every case with half the rays of each one-device
+    query.  The one-device direct and BDPT frames are those of [direct]
+    and [bdpt] (``refs``); the path and stream frames are rendered here.
+    Per-ray radiance through K2 of the 262,144 lanes whole and as two
+    halves: bit-equal.  (b) One NCCL rank: ``mesh.shard_step`` over the
+    world of one rank (its ``all_reduce`` of CUDA tensors runs) equals
+    ``shard_step`` over the groupless one-rank mesh, the Renderer's
+    one-device step, bit for bit, both under torch's deterministic
+    algorithms.  (c) The same two processes as (a), after leaving the gloo
+    group, join an NCCL group on the one card: each rank's first
+    collective fails with NCCL's "Duplicate GPU detected", which is
+    checked.  Prints each rank's rays, wall seconds, launches and K2 query
+    sizes, gloo's and NCCL's ms per film ``all_reduce``, and the batch
+    path's two-process and one-process rays/s (``DEV_LABEL``)."""
+    import tempfile
+    from lumo_tpu_torch import film as film_mod
+    from lumo_tpu_torch.integrators import path_trace
+    from lumo_tpu_torch.parallel import distributed
+    from lumo_tpu_torch.parallel import mesh as mesh_mod
+    from lumo_tpu_torch.renderer import Renderer
+    t_phase = time.perf_counter()
+    res = camera.resolution[0]
+    rank_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                else str(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(devices_rank, DEV_WORLD,
+                    (f"file://{tmp}/gloo", tmp, rank_dev, res), DEV_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DEV_WORLD)]
+        refusals = [open(os.path.join(tmp, f"rank{r}.txt")).read()
+                    for r in range(DEV_WORLD)]
+    log("devices", ranks=DEV_WORLD, backend="gloo", spawn_s=round(spawn_s, 2),
+        summary=repr(ranks[0]["summary"]))
+
+    one = {**devices_frames(scene, camera, 1, ("path", "stream")), **refs}
+    rays_of = lambda f: ("not counted" if case == "stream"
+                         else int(f["rays"]))
+    for case in DEV_CASES:
+        for r, out in enumerate(ranks):
+            f = out["frames"][case]
+            log("devices", case=case, rank=r, rays=rays_of(f),
+                wall_s=f["wall"],
+                launches=json.dumps(f["launches"]).replace(" ", ""),
+                k2_max_rays=json.dumps({k: max(v, default=0) for k, v in
+                                        f["sizes"].items()}).replace(" ", ""))
+            _check_rank_launches(case, r, f, one[case])
+        f = one[case]
+        log("devices", case=case, rank="one-device", rays=rays_of(f),
+            wall_s=f["wall"],
+            launches=json.dumps(f["launches"]).replace(" ", ""),
+            k2_max_rays=json.dumps({k: max(v, default=0) for k, v in
+                                    f["sizes"].items()}).replace(" ", ""))
+        img = ranks[0]["frames"][case]["image"]
+        if not all(np.array_equal(img, out["frames"][case]["image"])
+                   for out in ranks[1:]):
+            raise AssertionError(f"devices {case}: the ranks' images differ")
+        if img.shape != (res, res, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"devices {case}: wrong shape or non-finite")
+        _devices_check("devices", case, img, f["image"], 1e-4, 1e-5)
+    for r, out in enumerate(ranks):
+        log("devices", rank=r, rank_wall_s=out["wall_s"],
+            gloo_psum_ms=out["psum_ms"], psum_bytes=out["psum_bytes"])
+
+    two = [out["frames"]["path"] for out in ranks]
+    log("devices", case="path", label=repr(DEV_LABEL),
+        two_process_rays_per_s=sum(f["rays"] for f in two)
+        / max(f["wall"] for f in two),
+        one_process_rays_per_s=one["path"]["rays"] / one["path"]["wall"])
+
+    n = res * res * SPP
+    grads = devices_grads(scene, camera, slice(0, n))
+    for k, g in grads.items():
+        if not all(torch.equal(ranks[0]["grads"][k], out["grads"][k])
+                   for out in ranks[1:]):
+            raise AssertionError(f"devices grad {k}: the ranks differ")
+        _devices_check("devices", f"grad-{k}", ranks[0]["grads"][k].numpy(),
+                       g.cpu().numpy(), 2e-4, 1e-6)
+
+    # per-ray radiance through K2: the wavefront whole and as two halves
+    o, d, lam, rk = camera_wavefront(camera, res, SPP, dev)
+    _reset_launches()
+    whole = path_trace.integrate(scene, o, d, lam, ray_key=rk)[0]
+    halves = torch.cat([path_trace.integrate(
+        scene, o[s], d[s], lam[s], ray_key=rk[s])[0]
+        for s in (slice(0, n // 2), slice(n // 2, n))])
+    same = (whole == halves) | (torch.isnan(whole) & torch.isnan(halves))
+    launches = _launch_counts()
+    log("devices", case="per-ray-radiance", lanes=n,
+        differing=int((~same).sum()),
+        max_abs_err=float((whole - halves).abs().max()),
+        launches=json.dumps(launches).replace(" ", ""))
+    if not bool(same.all()) or launches["k2_closest"] <= 0:
+        raise AssertionError("devices: per-ray radiance through K2 depends "
+                             "on the split")
+
+    # (b) one NCCL rank through shard_step.  The film's and stats'
+    # index_add_ sum with atomics on the card, so two runs of one step
+    # differ in the last bits (up to 2.4e-07, PERF.md) unless torch's
+    # deterministic algorithms are on: both steps run with them
+    r = Renderer(scene, camera).samples(SPP)
+    spp_batch = r._auto_batch()
+    work = r._make_work(spp_batch, SPP)
+    n_rays = res * res * spp_batch
+    film = film_mod.new_film((res, res), device=dev)
+    stats = r.new_stats(res * res)
+    one_rank = mesh_mod.shard_step(mesh_mod.make_mesh(1, dev), work, n_rays)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(coordinator=f"file://{tmp}/nccl",
+                               num_processes=1, process_id=0,
+                               backend="nccl")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mesh = mesh_mod.make_mesh()
+            want = one_rank(film, stats, 0)
+            _reset_launches()
+            got = mesh_mod.shard_step(mesh, work, n_rays)(film, stats, 0)
+            launches = _launch_counts()
+            nccl_ms, _ = psum_ms(mesh, res, dev)
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            distributed.shutdown()
+    equal = (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+             and all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+             and int(got[2]) == int(want[2]))
+    log("devices", case="nccl-one-rank", backend=backend,
+        group_size=mesh.size, bit_equal=equal, nccl_psum_ms=nccl_ms,
+        launches=json.dumps(launches).replace(" ", ""))
+    if (not equal or backend != "nccl" or mesh.group is None
+            or launches["k2_closest"] <= 0):
+        raise AssertionError("devices: the NCCL shard_step differs from "
+                             "the one-device step")
+
+    # (c) NCCL refuses two ranks on one card (run by the ranks of (a))
+    line = next((ln for ln in refusals[0].splitlines()
+                 if "Duplicate GPU" in ln), "")
+    log("devices", case="nccl-two-ranks-one-card", refused=bool(line),
+        message=repr(line.strip()[:200]))
+    if not all("Duplicate GPU detected" in m for m in refusals):
+        raise AssertionError(f"devices: NCCL did not refuse two ranks on "
+                             f"one card: {[m[:300] for m in refusals]}")
+    log("devices", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2111,10 +2501,12 @@ def main():
     phase_parity_kd(scene_kd, dev)
     phase_grad_kd(scene_kd, scene, parity)
     phase_render_kd_stream(scene_kd, camera)
-    phase_direct({"bvh": scene, "kdtree": scene_kd}, camera, dev)
+    refs = {}     # [devices]' one-device frames, rendered by [direct], [bdpt]
+    phase_direct({"bvh": scene, "kdtree": scene_kd}, camera, dev, refs)
     del scene_kd
     phase_materials(dev)
-    phase_bdpt(scene, camera, dev)
+    phase_bdpt(scene, camera, dev, refs)
+    phase_devices(scene, camera, dev, refs)
     del scene
     phase_instance(camera, dev)
     phase_io(camera, dev)

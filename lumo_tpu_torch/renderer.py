@@ -7,12 +7,17 @@ covers the whole image times a sample sub-batch; ``render`` iterates it and
 scatter-adds into a film that stays on the scene's device.  ``.stream()``
 renders through the persistent wavefront instead
 (``path_trace.integrate_stream``), folding each terminated lane into the
-film and the per-pixel stats (path integrator only).  The path,
-direct-light and bidirectional integrators are ported, on one device;
-rendering over several devices raises with the number of its item in
-``ROADMAP.md``.  The bidirectional integrator's light-traced samples (its
-t = 1 strategies) land at raster coordinates of their own, in the film's
-splat buffer.
+film and the per-pixel stats (path integrator only).  The bidirectional
+integrator's light-traced samples (its t = 1 strategies) land at raster
+coordinates of their own, in the film's splat buffer.
+
+Over several devices (``.devices(n)``, by default the world size of the
+process group that ``parallel.distributed.initialize`` joined; one
+process a device) each rank runs the same ``work`` on its block of the
+ray ids and the films are summed over the ranks once a step
+(``parallel/mesh.py``); in stream mode each rank runs its own lane pool
+over its own range of samples and the films are summed once at the end.
+Every rank returns the same image.
 
 Every random draw of ``work`` is a counter hash of (pixel, sample index,
 seed), so a render is a pure function of its configuration and needs no
@@ -29,10 +34,11 @@ from lumo_tpu_torch.camera import Camera
 from lumo_tpu_torch.color import space as space_mod
 from lumo_tpu_torch.color import wavelength
 from lumo_tpu_torch.integrators import bdpt, direct_light, path_trace
+from lumo_tpu_torch.parallel import mesh as mesh_mod
 from lumo_tpu_torch.sampling import samplers
 from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _mul32, _randfloat
 from lumo_tpu_torch.scene.materials import MF_DIELECTRIC
-from lumo_tpu_torch.scene.scene import SceneData, _not_ported
+from lumo_tpu_torch.scene.scene import SceneData
 
 PATH_TRACE = "path"
 DIRECT_LIGHT = "direct"
@@ -68,6 +74,7 @@ class Renderer:
         self._stream = False  # persistent wavefront instead of batches
         self._debug = False  # paint NaN/neg/huge radiance (tone_mapping.rs:42-56)
         self._bdpt_depth = None  # max vertices per BDPT subpath (auto)
+        self._devices = None  # None: the process group's world size
 
     # fluent config (mirrors reference ``renderer.rs:66-99``)
     def samples(self, n):
@@ -148,9 +155,10 @@ class Renderer:
         return self
 
     def devices(self, n):
-        """Rendering over ``n`` devices; one device is what is ported."""
-        if int(n) > 1:
-            raise _not_ported("rendering over several devices", 11)
+        """Render over ``n`` devices: the ``n`` ranks of the process group
+        (``parallel.distributed.initialize``), one a device; by default
+        the world size, or 1 without a group."""
+        self._devices = int(n)
         return self
 
     # ------------------------------------------------------------------
@@ -320,25 +328,73 @@ class Renderer:
                                device=self.scene.device)
                 for k in ("f", "f2", "cost", "n")}
 
-    def _step(self, work, n_rays, film, stats, sample_base):
-        """One film accumulation step over the whole wavefront."""
-        ray_ids = torch.arange(n_rays, dtype=torch.int64,
-                               device=self.scene.device)
-        film_p, stats_p, rays = work(ray_ids, sample_base, stats)
-        return (tuple(a + b for a, b in zip(film, film_p)),
-                {k: stats[k] + stats_p[k] for k in stats}, rays)
+    def _mesh(self):
+        """The mesh to render over (``parallel/mesh.py``): the world of
+        the process group by default, else ``.devices(n)``; one device is
+        the one-rank mesh.  Over several ranks one collective checks that
+        every rank renders the same configuration on its own device."""
+        n = self._devices
+        if n is None:
+            n = mesh_mod.make_mesh(None, self.scene.device).size
+        w, h = self.camera.resolution
+        if (w * h) % n:
+            raise ValueError(
+                f"pixel count {w * h} must be divisible by {n} devices")
+        mesh = mesh_mod.make_mesh(n, self.scene.device)
+        on_device = self.scene.device == mesh.device
+        agree = mesh.group is None or mesh_mod.same_on_all(
+            self._fingerprint() if on_device else None, mesh)
+        if not on_device:
+            raise ValueError(f"the scene is on {self.scene.device}, this "
+                             f"rank's device is {mesh.device}")
+        if not agree:
+            raise ValueError("the ranks disagree on the resolution, "
+                             "samples, seed, integrator, camera or scene "
+                             "(or a rank's scene is not on its device): a "
+                             "render over several devices needs the same "
+                             "on every rank")
+        return mesh
 
-    def _render_stream(self, verbose=True):
+    def _fingerprint(self):
+        """What the ranks of one render must agree on, as bytes: the
+        resolution, samples, step size, seed, integrator, mode, threshold,
+        BDPT depth, triangle count and the camera's tensors."""
+        c = self.camera
+        kind = (PATH_TRACE, DIRECT_LIGHT, BD_PATH_TRACE).index(
+            self._integrator)
+        head = torch.tensor(
+            [*c.resolution, c.kind, self._samples, self._auto_batch(),
+             self._seed, kind, self._stream,
+             -1.0 if self._delta is None else self._delta,
+             self._resolved_bdpt_depth(), self.scene.n_tris],
+            dtype=torch.float64)
+        return torch.cat([head] + [
+            x.detach().reshape(-1).to(device="cpu", dtype=torch.float64)
+            for x in (c.r2c, c.c2w_rot, c.c2w_t, c.lens_radius,
+                      c.focal_length)]).numpy().tobytes()
+
+    def _render_stream(self, mesh, verbose=True):
         """Persistent-wavefront render (see :meth:`stream`): every (pixel,
         sample) is traced once by ``path_trace.integrate_stream``, dead
         lanes taking the next samples at once; each iteration folds the
         lanes that have just terminated into the film and the stats, and
-        the adaptive delta of the live lanes follows the running stats."""
+        the adaptive delta of the live lanes follows the running stats.
+        Each rank of the mesh runs its own lane pool over a disjoint range
+        of sample ids, its delta following its own running stats, and
+        film, stats and ray count are summed over the ranks at the end; a
+        sample's radiance does not depend on the partition."""
         w, h = self.camera.resolution
         n_pix = w * h
         n_samples = n_pix * self._samples
+        n_dev = mesh.size
+        if n_samples % n_dev:
+            raise ValueError(
+                f"samples {n_samples} must divide over {n_dev} devices")
+        per_dev = n_samples // n_dev
+        base = mesh.rank * per_dev
         # 4 lanes per pixel, capped at one wavefront of 262,144
-        lanes = min(n_samples, max(4 * n_pix, 8192), 262144)
+        lanes = min(per_dev, max(4 * (n_pix // n_dev), 8192), 262144)
+        gen = self._sample_gen(self._samples)
         fold_samples = self._make_fold()
 
         def fold(acc, term, st):
@@ -349,39 +405,45 @@ class Renderer:
 
         t0 = time.time()
         film = film_mod.new_film((w, h), device=self.scene.device)
-        film, _, rays = path_trace.integrate_stream(
-            self.scene, self._sample_gen(self._samples), fold,
-            (film, self.new_stats(n_pix), 0), lanes, n_samples,
+        acc = path_trace.integrate_stream(
+            self.scene, lambda idx: gen(idx + base), fold,
+            (film, self.new_stats(n_pix),
+             torch.zeros((), dtype=torch.int64, device=self.scene.device)),
+            lanes, per_dev,
             delta_fn=lambda acc, st: self._delta_of(acc[1], st["pix"]))
+        film, _, rays = mesh_mod.psum(acc, mesh)
         img = film_mod.finalize(film, self._filter, 1.0 / self._samples)
         out = img.cpu().numpy()
         if verbose:
             el = time.time() - t0
             total_rays = int(rays)
-            print(f"Rendered {w}x{h}@{self._samples}spp (stream) on "
-                  f"{self.scene.device}: {total_rays / 1e6:.1f} Mrays in "
+            print(f"Rendered {w}x{h}@{self._samples}spp (stream) on {n_dev} "
+                  f"device(s) ({self.scene.device}): "
+                  f"{total_rays / 1e6:.1f} Mrays in "
                   f"{el:.1f}s = {total_rays / max(el, 1e-9) / 1e6:.2f} Mray/s",
                   flush=True)
         return out
 
     def render(self, verbose=True):
-        """Render and return the linear-RGB image (H, W, 3) numpy array."""
+        """Render and return the linear-RGB image (H, W, 3) numpy array
+        (the same on every rank)."""
+        mesh = self._mesh()
         if self._stream:
             if self._integrator != PATH_TRACE:
                 raise ValueError("stream mode supports the path integrator")
-            return self._render_stream(verbose)
+            return self._render_stream(mesh, verbose)
         w, h = self.camera.resolution
         spp_batch = self._auto_batch()
         work = self._make_work(spp_batch, self._samples)
         n_rays = w * h * spp_batch
+        step = mesh_mod.shard_step(mesh, work, n_rays)
         film = film_mod.new_film((w, h), device=self.scene.device)
         stats = self.new_stats(w * h)
         total_rays = 0
         t0 = time.time()
         n_batches = (self._samples + spp_batch - 1) // spp_batch
         for b in range(n_batches):
-            film, stats, rays = self._step(work, n_rays, film, stats,
-                                           b * spp_batch)
+            film, stats, rays = step(film, stats, b * spp_batch)
             total_rays += int(rays)
             if verbose and (b == 0 or (b + 1) % 8 == 0 or b == n_batches - 1):
                 el = time.time() - t0
@@ -395,11 +457,13 @@ class Renderer:
         out = img.cpu().numpy()
         if verbose:
             el = time.time() - t0
-            print(f"Rendered {w}x{h}@{self._samples}spp on "
-                  f"{self.scene.device}: {total_rays / 1e6:.1f} Mrays in "
+            print(f"Rendered {w}x{h}@{self._samples}spp on {mesh.size} "
+                  f"device(s) ({self.scene.device}): "
+                  f"{total_rays / 1e6:.1f} Mrays in "
                   f"{el:.1f}s = {total_rays / max(el, 1e-9) / 1e6:.2f} Mray/s",
                   flush=True)
         return out
 
     def save_png(self, img, path):
         film_mod.save_png(img, path, self._colorspace)
+

@@ -531,3 +531,30 @@ def test_stream_on_the_card_matches_batch(card):
              & (dep == dep_b))
     assert int((~close).sum()) <= n // 100
     assert float(r_b.sum()) > 0.0
+
+
+def test_two_gloo_ranks_on_one_card_match_one_device(card, tmp_path):
+    """Two gloo ranks sharing the card render the bench scene at 64^2
+    through ``.devices(2)``: the same image on both, equal to the
+    one-device image within rtol 1e-4, atol 1e-5, and K2 closest and any
+    launched on both ranks.  The kernels and the tree builder are built
+    here first, so the ranks do not build them at once."""
+    import _torch_shard_worker as worker
+    import chip_smoke
+    from lumo_tpu_torch import native
+    from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.renderer import Renderer
+    bvh_kernel.LIB.load()
+    native.load("bvh")
+    worker.spawn(worker.bench_ranks, 2, f"file://{tmp_path}/rendezvous",
+                 str(tmp_path), 64)
+    outs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    scene = chip_smoke.bench_scene(card)
+    one = Renderer(scene, build_camera(resolution=(64, 64), device=card)) \
+        .samples(worker.SPP).render(verbose=False)
+    for out in outs:
+        assert out["launches"]["closest"] > 0 and out["launches"]["any"] > 0
+    assert np.array_equal(outs[0]["image"], outs[1]["image"])
+    assert np.isfinite(one).all() and one.mean() > 0
+    np.testing.assert_allclose(outs[0]["image"], one, rtol=1e-4, atol=1e-5)

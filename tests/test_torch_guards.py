@@ -1,5 +1,6 @@
 """Guards on the port's boundaries: lumo_tpu_torch (its host I/O
-included) and chip_smoke.py import neither JAX, nor anything of lumo_tpu,
+included), chip_smoke.py and the ranks of the multi-process tests
+(tests/_torch_shard_worker.py) import neither JAX, nor anything of lumo_tpu,
 nor PIL (the port needs torch, numpy and the standard library only), and
 the entry points run on the card unless the caller names another
 device."""
@@ -29,6 +30,8 @@ names = [m.name for m in pkgutil.walk_packages(lumo_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import _torch_shard_worker
 import os, tempfile
 import numpy as np
 from lumo_tpu_torch import film           # its PNG writer runs without PIL

@@ -9,9 +9,10 @@ scene and on a dense scene, agree with the JAX ``Renderer`` on one device:
 at least 99% of the pixels within rtol 1e-3 (atol 1e-6) and the image mean
 within 1e-3; the rest are paths whose topology flips by an ulp.  So do
 the direct-light and bidirectional integrators, by the rule of
-``test_not_ported_modes_raise``; rendering over several devices raises
-with its ROADMAP item (stream mode is held against batch mode in
-``test_torch_stream.py``)."""
+``test_not_ported_modes_raise``; rendering over several devices without
+a process group to span raises, naming ``parallel.distributed.initialize``
+(``test_torch_parallel.py`` renders over two ranks; stream mode is held
+against batch mode in ``test_torch_stream.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,7 +214,8 @@ def test_bdpt_auto_batch_caps_lanes(scenes):
     (lambda r: r.integrator("direct"), 8), (lambda r: r.integrator("bdpt"), 8),
     (lambda r: r.integrator("bdpt").bdpt_depth(4), 8)])
 def test_not_ported_modes_raise(scenes, call, item):
-    """Rendering over several devices raises with its ROADMAP item.  The
+    """Rendering over several devices (item 11, ported) raises without a
+    process group of that many ranks, naming the call that joins one.  The
     modes of item 8, raises until the direct-light and bidirectional
     integrators were ported, render the dense scene as the JAX Renderer
     does (one sample per pixel, square filter, fixed Russian-roulette
@@ -228,8 +230,8 @@ def test_not_ported_modes_raise(scenes, call, item):
         r.integrator("photon")
     assert trenderer.PATH_TRACE == "path"
     if item == 11:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            call(r)
+        with pytest.raises(ValueError, match="distributed.initialize"):
+            call(r).render(verbose=False)
         return
     jr = JRenderer(js, jcamera(resolution=RES)).devices(1)
     for x, film in ((jr, jfilm), (r, tfilm)):
