@@ -5,10 +5,11 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (BVH traversal with its stats variant,
-kd-tree traversal, the in-kernel loop microbenchmark) and both native
-tree builders from the sources in the checkout, holds every kernel
-against its plain PyTorch version on the card, and drives the port's
-paths over ``bench.py``'s scenes at 256x256:
+kd-tree traversal, the in-kernel loop microbenchmark), both native tree
+builders and the JPEG decoder from the sources in the checkout, all
+compilers at once, holds every kernel against its plain PyTorch version
+on the card, and drives the port's paths over ``bench.py``'s scenes at
+256x256:
 
 - forward: the 327,692-triangle scene of ``bench.py::bench_bvh_scene``
   through ``path_trace.integrate`` (4 samples per pixel, one wavefront of
@@ -39,6 +40,12 @@ paths over ``bench.py``'s scenes at 256x256:
 - host I/O (``[io]``): the committed ``scenes/demo.zip`` (.obj, .mtl,
   PNG textures, a bump map) through the port's loader and PNG decoder,
   rendered through K2;
+- the user programs (``[examples]``): each of the 11 example programs
+  (``lumo_tpu_torch.examples``) through its own ``main`` at 512^2 and 1
+  spp, as a user runs it, and dragon once more with ``--accel kdtree``;
+  every PNG read back, K2 (K3) launches per program; bunny's and the
+  bistro stand-in's kernel-routed images and per-lane depths against
+  the plain-routed ones, dragon's K3 image against its K2 image;
 - the quality harness (``[quality]``, ``lumo_tpu_torch/tools/quality.py``
   at ``tools/quality.py 64 4``'s configurations): float32 against the
   float64 reference mode and float64 AD against finite differences on the
@@ -52,7 +59,9 @@ paths over ``bench.py``'s scenes at 256x256:
   batch and stream mode, direct light, BDPT) and take a ``pmean``'d
   gradient, each launching K2 on half of every query, held against one
   device; one NCCL rank runs ``mesh.shard_step`` against the one-device
-  step; NCCL's refusal of two ranks on one card is checked.
+  step; NCCL's refusal of two ranks on one card is checked.  The two
+  ranks start before ``[parity-kd]`` and set up while the phases before
+  ``[devices]`` run, then wait for its go file.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -180,6 +189,9 @@ def camera_wavefront(camera, res, spp, dev):
     return sample_rays(camera, res, idx)[:4]
 
 
+NATIVE_LIBS = ("bvh", "kdtree", "jpeg")
+
+
 def kernel_libraries():
     from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
     from lumo_tpu_torch.tools import exp_sync
@@ -187,23 +199,37 @@ def kernel_libraries():
 
 
 def phase_card():
-    """Build both native tree builders (g++) and every kernel library
-    (nvcc), and print each kernel's ptxas lines."""
+    """Build the native host libraries (the two tree builders and the
+    JPEG decoder, g++) and every kernel library (nvcc) at once, one
+    compiler process each, and print each kernel's ptxas lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from lumo_tpu_torch import native
     log("card", nvidia_smi=repr(card_line()),
         device=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
-    from lumo_tpu_torch import native
     t0 = time.perf_counter()
-    for which in ("bvh", "kdtree"):
-        native.load(which)
-    log("card", native_builds_s=round(time.perf_counter() - t0, 3))
-    for lib in kernel_libraries():
-        lib.load()
+
+    def timed(load):
+        t = time.perf_counter()
+        load()
+        return round(time.perf_counter() - t, 3)
+
+    libs = kernel_libraries()
+    with ThreadPoolExecutor(max_workers=len(NATIVE_LIBS) + len(libs)) as pool:
+        jobs = {**{w: pool.submit(timed, lambda w=w: native.load(w))
+                   for w in NATIVE_LIBS},
+                **{lib.name: pool.submit(timed, lib.load) for lib in libs}}
+        seconds = {k: job.result() for k, job in jobs.items()}
+    log("card", native_build_s=json.dumps(
+        {w: seconds[w] for w in NATIVE_LIBS}).replace(" ", ""))
+    for lib in libs:
         for line in lib.ptxas_lines():
             print(f"  ptxas {lib.name}: {line}", flush=True)
-        log("card", library=lib.name, nvcc_build_s=round(lib.info["seconds"], 3))
-    log("card", all_builds_s=round(time.perf_counter() - t0, 3))
+        log("card", library=lib.name, nvcc_build_s=round(lib.info["seconds"], 3)
+            if lib.info["seconds"] is not None else "cached")
+    log("card", all_builds_s=round(time.perf_counter() - t0, 3),
+        parallel=True)
 
 
 def _random_soup(T, N, seed):
@@ -1233,124 +1259,31 @@ MAT_SCENES = (("dragon", "bvh"), ("dragon-kd", "kdtree"), ("dof", "bvh"),
 
 
 def example_scene(name, dev, accel):
-    """The scene of ``examples/<name>.py`` built with the port by the
-    program's own calls (the mesh programs' stand-in blobs): (scene,
-    camera(res) giving its camera at res^2, renderer illuminant or
-    None)."""
-    import math
-    from lumo_tpu_torch import camera as cam_mod
-    from lumo_tpu_torch.color import uplift
-    from lumo_tpu_torch.scene import shapes
-    from lumo_tpu_torch.scene.cornell import cornell_box, empty_box
-    from lumo_tpu_torch.scene.instance import Mesh
-    from lumo_tpu_torch.scene.materials import Material
-    from lumo_tpu_torch.scene.scene import SceneBuilder
-    PI = math.pi
+    """The scene of the port's example program ``name``
+    (``lumo_tpu_torch.examples.<name>``, its stand-in meshes) as its
+    ``make`` builds it at MAT_RES with ``accel`` on ``dev``: (scene,
+    camera(res) giving the program's camera at res^2, the renderer's
+    illuminant)."""
+    import argparse
+    import importlib
+    mod = importlib.import_module(f"lumo_tpu_torch.examples.{name}")
 
-    def blob(subdiv, seed, amp):
-        v, f, vn = shapes.blob(subdiv=subdiv, seed=seed, amp=amp)
-        return Mesh(v, f, normals=vn)
+    def args(res):
+        return argparse.Namespace(**{**vars(mod.parse([])), "res": res,
+                                     "accel": accel,
+                                     "cpu": dev.type == "cpu"})
 
-    cam, fn, illuminant = {}, "build_camera", None
-    if name == "dragon":
-        sb = empty_box(uplift.from_srgb8(242, 242, 242).reshape(4),
-                       Material.diffuse(uplift.from_srgb8(255, 0, 0)
-                                        .reshape(4)),
-                       Material.diffuse(uplift.from_srgb8(0, 255, 0)
-                                        .reshape(4)))
-        (blob(5, 13, 0.25).to_unit_size().to_origin()
-         .rotate_y(5.0 * PI / 8.0).scale_uniform(1.3).set_y(-0.799)
-         .translate(0.0, 0.0, -1.4)
-         .add_to(sb, Material.transparent(
-             uplift.from_srgb8(255, 0, 255).reshape(4), 0.03, 1.5)))
-    elif name == "dof":
-        sb = SceneBuilder()
-        checker = sb.textures.checkerboard((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
-                                           100.0)
-        gv, gf = shapes.grid_plane(n=1, size=10.0, y=0.0)
-        Mesh(gv, gf).translate(0.0, -1.0, 0.0).add_to(
-            sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=checker))
-        lv, lf = shapes.grid_plane(n=1, size=3.0, y=0.0)
-        Mesh(lv, lf).rotate_z(PI).translate(0.0, 8.0, -1.5).add_to(
-            sb, Material.light(0.25 * np.ones(4), two_sided=True))
-        teapot = blob(4, 5, 0.18).to_unit_size()
-        for i in range(3):
-            marble = sb.textures.marble((1.0, 245 / 255.0, 1.0))
-            (teapot.clone().to_origin().rotate_y(-PI / 4)
-             .translate(0.0, -0.75, -1.0 * i)
-             .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
-        o = np.array([-0.75, 0.25, 0.0])
-        t = np.array([0.0, -0.75, -1.0])
-        cam = dict(origin=tuple(o), towards=tuple(t), lens_radius=0.03,
-                   focal_length=float(np.linalg.norm(o - t)),
-                   kind=cam_mod.ORTHOGRAPHIC)
-    elif name == "nefertiti":
-        sb = SceneBuilder()
-        black = Material.diffuse((0.0, 0.0, 0.0))
-        sb.add_disk((0.0, -1.0, 0.0), (0.0, 1.0, 0.0), 10.0, black)
-        sb.add_disk((0.0, 1.0, 0.0), (0.0, -1.0, 0.0), 10.0, black)
-        sb.add_disk((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), 10.0, black)
-        sb.add_rectangle([-0.4, 0.99, -1.4], [-0.4, 0.99, -0.6],
-                         [0.4, 0.99, -0.6], Material.light(1.5 * np.ones(4)))
-        marble = sb.textures.marble((0.9, 0.85, 0.8))
-        (blob(5, 21, 0.18).to_unit_size().to_origin().rotate_x(-PI / 2)
-         .rotate_y(PI).set_y(-0.99).translate(0.0, 0.0, -1.0)
-         .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
-        cam = dict(origin=(0.1, 0.2, 0.3), towards=(0.0, 0.1, -1.0))
-    elif name == "medium":
-        sb = cornell_box()
-        sb.set_medium((0.5, 0.5, 0.5), (0.1, 0.1, 0.1), 0.9)
-        fn, illuminant = "cornell_camera", "CORNELL"
-    elif name == "circle":
-        def hsv_to_rgb(h):
-            def f(n):
-                k = (n + h / (PI / 3.0)) % 6.0
-                return 1.0 - np.clip(min(k, 4.0 - k), 0.0, 1.0)
-            return uplift.from_srgb8(int(f(5.0) * 255), int(f(3.0) * 255),
-                                     int(f(1.0) * 255)).reshape(4)
-        sb = SceneBuilder()
-        ground, r = -0.2, 0.2
-        sb.add_disk((0.0, ground, 0.0), (0.0, 1.0, 0.0), 100.0,
-                    Material.mirror())
-        sb.add_sphere((0.0, ground + r + 0.1, 0.0), r,
-                      Material.light(0.01 * np.ones(4), illuminant="D65"))
-        for i in range(8):
-            theta = (i / 8) * 2.0 * PI + PI / 8
-            sb.add_sphere((math.cos(theta), ground + r, math.sin(theta)), r,
-                          Material.diffuse(hsv_to_rgb(theta - PI / 8)))
-        cam = dict(origin=(0.0, 1.0, 1.5), towards=(0.0, -0.5, 0.0),
-                   up=(0.0, 1.0, -1.0))
-    elif name in ("box", "caustics"):
-        sb = empty_box(uplift.from_srgb8(242, 242, 242).reshape(4),
-                       Material.diffuse(uplift.from_srgb8(255, 0, 255)
-                                        .reshape(4)),
-                       Material.diffuse(uplift.from_srgb8(0, 255, 255)
-                                        .reshape(4)))
-        if name == "box":
-            sb.add_sphere((-0.45, -0.5, -1.5), 0.25, Material.mirror())
-            sb.add_sphere((0.45, -0.5, -1.3), 0.25, Material.glass())
-        else:
-            suzanne = blob(4, 7, 0.15).to_unit_size()
-            (suzanne.clone().to_origin().rotate_y(-PI / 8).rotate_z(PI / 8)
-             .rotate_x(-PI / 8).translate(0.5, -0.3, -1.0)
-             .add_to(sb, Material.mirror()))
-            (suzanne.clone().to_origin().rotate_y(PI / 8).rotate_z(-PI / 8)
-             .rotate_x(PI / 16).translate(-0.35, 0.25, -1.25)
-             .add_to(sb, Material.glass()))
-            cam = dict(origin=(0.0, 0.0, 2.0), zoom=3.0)
-    else:
-        raise ValueError(name)
-    camera = lambda res: getattr(cam_mod, fn)(resolution=(res, res),
-                                              device=dev, **cam)
-    return sb.build(device=dev, accel=accel), camera, illuminant
+    r = mod.make(args(MAT_RES))
+    return r.scene, lambda res: mod.camera(args(res)), r._illuminant
 
 
 def integrator_frame(scene, camera, kind, spp, illuminant=None, delta=None,
-                     square=False, configure=None):
+                     square=False, configure=None, lanes=None):
     """One frame through ``Renderer(scene, camera).integrator(kind)``:
     (image (H, W, 3) numpy, 2 x sum of path depths, wall seconds of
     ``render``, bounce iterations of the path integrator, splats set).  A
-    BDPT sample's depth counts the vertices of both its subpaths."""
+    BDPT sample's depth counts the vertices of both its subpaths.  A list
+    ``lanes`` gets each ``integrate`` call's per-lane depths."""
     from lumo_tpu_torch import film, renderer
     mod = {"path": renderer.path_trace, "direct": renderer.direct_light,
            "bdpt": renderer.bdpt}[kind]
@@ -1360,6 +1293,8 @@ def integrator_frame(scene, camera, kind, spp, illuminant=None, delta=None,
     def integrate(*args, **kwargs):
         out = real(*args, **kwargs)
         depths.append(out[-1].sum())
+        if lanes is not None:
+            lanes.append(out[-1])
         if kind == "bdpt":
             splats.append(out[4].sum())
         return out
@@ -2075,22 +2010,50 @@ DEV_PSUM_REPS = 5      # timed all_reduces of a film after a warm-up
 DEV_LABEL = "two processes on one card; not a multi-card scaling figure"
 
 
-def spawn_ranks(fn, world, args, timeout):
-    """Run ``fn(rank, world, *args)`` in ``world`` processes started with
-    the spawn method (this process holds a CUDA context, so never fork)
-    and wait for all: a rank that raises stops the others and raises
+DEV_GO_TIMEOUT_S = 1200  # the longest a rank waits for its go file
+
+
+def start_ranks(fn, world, args):
+    """Start ``fn(rank, world, *args)`` in ``world`` processes with the
+    spawn method (this process holds a CUDA context, so never fork); the
+    context to :func:`join_ranks` or :func:`stop_ranks`."""
+    import torch.multiprocessing as mp
+    return mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def join_ranks(ctx, timeout):
+    """Wait for every rank: a rank that raises stops the others and raises
     here, and ranks still running after ``timeout`` seconds are stopped
     and raise."""
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
-                             join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
         if time.monotonic() > deadline:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
+            stop_ranks(ctx)
             raise TimeoutError(f"ranks still running after {timeout} s")
+
+
+def stop_ranks(ctx):
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
+    for p in ctx.processes:
+        p.join(timeout=10)
+
+
+def spawn_ranks(fn, world, args, timeout):
+    """:func:`start_ranks`, then :func:`join_ranks`."""
+    join_ranks(start_ranks(fn, world, args), timeout)
+
+
+def wait_for_go(go_file, parent):
+    """Block until ``go_file`` exists; exit when the process ``parent``
+    that started this one is gone, or after DEV_GO_TIMEOUT_S."""
+    deadline = time.monotonic() + DEV_GO_TIMEOUT_S
+    while not os.path.exists(go_file):
+        if os.getppid() != parent or time.monotonic() > deadline:
+            raise SystemExit(f"no go file {go_file}")
+        time.sleep(0.05)
 
 
 def _k2_query_sizes():
@@ -2193,12 +2156,16 @@ def psum_ms(mesh, res, dev):
     return (time.perf_counter() - t0) / DEV_PSUM_REPS * 1e3, n
 
 
-def devices_rank(rank, world, init_url, out_dir, device, res):
-    """One rank of ``[devices]``: (a) joins the gloo group on ``device``,
-    builds the bench scene, renders every case over the world, takes its
-    block of the gradient and the ``pmean``, times a film's
-    ``all_reduce``, and saves it all to ``out_dir/rank{rank}.pt``; then
-    (c) :func:`nccl_refusal`."""
+def devices_rank(rank, world, init_url, out_dir, device, res, go_file=None,
+                 parent=None):
+    """One rank of ``[devices]``: (a) joins the gloo group on ``device``
+    and builds the bench scene; with ``go_file``, waits for it (the parent
+    starts the ranks early, so that this set-up overlaps its earlier
+    phases, and writes the file when ``[devices]`` begins); then renders
+    every case over the world, takes its block of the gradient and the
+    ``pmean``, times a film's ``all_reduce``, and saves it all with its
+    set-up and working seconds to ``out_dir/rank{rank}.pt``; then (c)
+    :func:`nccl_refusal`."""
     from lumo_tpu_torch.camera import build_camera
     from lumo_tpu_torch.parallel import distributed
     from lumo_tpu_torch.parallel import mesh as mesh_mod
@@ -2211,6 +2178,11 @@ def devices_rank(rank, world, init_url, out_dir, device, res):
         scene = bench_scene(dev)
         camera = build_camera(resolution=(res, res), device=dev)
         mesh = mesh_mod.make_mesh()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if go_file is not None:
+            wait_for_go(go_file, parent)
+        t1 = time.perf_counter()
         out = {"summary": distributed.process_summary(),
                "frames": devices_frames(scene, camera, world)}
         n = res * res * SPP
@@ -2218,11 +2190,37 @@ def devices_rank(rank, world, init_url, out_dir, device, res):
             scene, camera, slice(rank * n // world, (rank + 1) * n // world),
             mesh).items()}
         out["psum_ms"], out["psum_bytes"] = psum_ms(mesh, res, dev)
-        out["wall_s"] = time.perf_counter() - t0
+        out["setup_s"] = setup_s
+        out["wall_s"] = time.perf_counter() - t1
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         distributed.shutdown()
     nccl_refusal(rank, world, init_url + "-nccl", out_dir)
+
+
+def start_devices_ranks(dev, res):
+    """Start ``[devices]``' DEV_WORLD gloo ranks now; they set up and wait
+    for the go file that :func:`phase_devices` writes.  Returns what
+    phase_devices and :func:`stop_devices_ranks` take."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    rank_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                else str(dev))
+    go = os.path.join(tmp.name, "go")
+    ctx = start_ranks(devices_rank, DEV_WORLD,
+                      (f"file://{tmp.name}/gloo", tmp.name, rank_dev, res,
+                       go, os.getpid()))
+    log("devices", ranks_started=DEV_WORLD, backend="gloo",
+        note=repr("setting up while the earlier phases run"))
+    return {"ctx": ctx, "tmp": tmp, "go": go}
+
+
+def stop_devices_ranks(ranks):
+    """Stop ranks still running (a phase before ``[devices]`` failed) and
+    remove their directory."""
+    if ranks is not None:
+        stop_ranks(ranks["ctx"])
+        ranks["tmp"].cleanup()
 
 
 def nccl_refusal(rank, world, init_url, out_dir):
@@ -2273,13 +2271,14 @@ def _check_rank_launches(case, rank, frame, one):
                              f" against the one-device halves {halves}")
 
 
-def phase_devices(scene, camera, dev, refs):
+def phase_devices(scene, camera, dev, refs, started):
     """Slice 9: rendering over several devices on torch.distributed.
 
     (a) DEV_WORLD gloo ranks on the one card (``initialize(...,
     backend="gloo", device="cuda:0")``, started by
-    ``torch.multiprocessing.spawn``), each building the bench scene and
-    rendering it at 256^2 through ``Renderer(...).devices(2)``: the path
+    ``torch.multiprocessing`` before ``[parity-kd]``
+    (:func:`start_devices_ranks`), each building the bench scene, waiting
+    for the go file this phase writes, then rendering it at 256^2 through ``Renderer(...).devices(2)``: the path
     integrator at 4 spp in batch and in stream mode, the direct-light
     integrator and BDPT at depth 6 and 1 spp; then the gradient of
     mean(r^2) at fixed depth 2 over its half of the 262,144 first-bounce
@@ -2300,26 +2299,26 @@ def phase_devices(scene, camera, dev, refs):
     checked.  Prints each rank's rays, wall seconds, launches and K2 query
     sizes, gloo's and NCCL's ms per film ``all_reduce``, and the batch
     path's two-process and one-process rays/s (``DEV_LABEL``)."""
-    import tempfile
     from lumo_tpu_torch import film as film_mod
     from lumo_tpu_torch.integrators import path_trace
     from lumo_tpu_torch.parallel import distributed
     from lumo_tpu_torch.parallel import mesh as mesh_mod
+    import tempfile
     from lumo_tpu_torch.renderer import Renderer
     t_phase = time.perf_counter()
     res = camera.resolution[0]
-    rank_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
-                else str(dev))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        spawn_ranks(devices_rank, DEV_WORLD,
-                    (f"file://{tmp}/gloo", tmp, rank_dev, res), DEV_TIMEOUT_S)
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(DEV_WORLD)]
-        refusals = [open(os.path.join(tmp, f"rank{r}.txt")).read()
-                    for r in range(DEV_WORLD)]
-    log("devices", ranks=DEV_WORLD, backend="gloo", spawn_s=round(spawn_s, 2),
+    tmp = started["tmp"].name
+    t0 = time.perf_counter()
+    with open(started["go"], "w") as f:
+        f.write("go")
+    join_ranks(started["ctx"], DEV_TIMEOUT_S)
+    wait_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DEV_WORLD)]
+    refusals = [open(os.path.join(tmp, f"rank{r}.txt")).read()
+                for r in range(DEV_WORLD)]
+    log("devices", ranks=DEV_WORLD, backend="gloo", wait_s=round(wait_s, 2),
+        setup_s=json.dumps([round(out["setup_s"], 2) for out in ranks]),
         summary=repr(ranks[0]["summary"]))
 
     one = {**devices_frames(scene, camera, 1, ("path", "stream")), **refs}
@@ -2432,18 +2431,173 @@ def phase_devices(scene, camera, dev, refs):
     log("devices", phase_s=round(time.perf_counter() - t_phase, 1))
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(ROOT, "lumo_tpu_torch")):
-        print("chip_smoke: run from the root of a lumo_tpu checkout "
-              "(lumo_tpu_torch/ not found)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+# ---------------------------------------------------------------------------
+# slice 10: the user programs (``lumo_tpu_torch.examples``)
+
+EX_RES = 512           # every program's default resolution
+EX_SPP = 1             # cut from the programs' 64 to 2,048 spp
+EX_PARITY_RES = 64
+EX_KD = ("dragon", ("--accel", "kdtree"))    # once more, through K3
+# the programs no earlier phase ran, held against their plain-routed images
+EX_NEW = {"bunny": ("path", None),
+          "bistro": ("bdpt", lambda r: r.tone_map("reinhard"))}
+
+
+def run_program(name, argv):
+    """``lumo_tpu_torch.examples.<name>.main(argv)``, the program as a
+    user runs it, observed: (the path it returned, a dict with the
+    Renderer its ``make`` built, ``make``'s seconds, ``render``'s wall
+    seconds, the image handed to ``save_png`` and the rays: 2 x the
+    summed path depths of every ``integrate``)."""
+    import importlib
+    from lumo_tpu_torch import film as film_mod
+    from lumo_tpu_torch import renderer
+    mod = importlib.import_module(f"lumo_tpu_torch.examples.{name}")
+    seen = {"depths": []}
+    real_make, real_render = mod.make, renderer.Renderer.render
+    real_save = film_mod.save_png
+
+    def make(args):
+        t0 = time.perf_counter()
+        r = real_make(args)
+        torch.cuda.synchronize()
+        seen.update(renderer=r, build_s=time.perf_counter() - t0)
+        return r
+
+    def render(self, verbose=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = real_render(self, verbose)    # ends with the image on the host
+        seen["wall_s"] = time.perf_counter() - t0
+        return img
+
+    def save_png(img, path, *args, **kwargs):
+        seen["image"] = img
+        return real_save(img, path, *args, **kwargs)
+
+    patches = [(mod, "make", make), (renderer.Renderer, "render", render),
+               (film_mod, "save_png", save_png)]
+    for integ in (renderer.path_trace, renderer.direct_light, renderer.bdpt):
+        def integrate(*args, _real=integ.integrate, **kwargs):
+            out = _real(*args, **kwargs)
+            seen["depths"].append(out[-1].sum())
+            return out
+        patches.append((integ, "integrate", integrate))
+    with contextlib.ExitStack() as stack:
+        for obj, attr, fn in patches:
+            stack.enter_context(mock.patch.object(obj, attr, fn))
+        path = mod.main(list(argv))
+    seen["rays"] = 2.0 * float(sum(seen["depths"]))
+    return path, seen
+
+
+def phase_examples(dev):
+    """Slice 10: each of the 11 example programs (and dragon once more
+    with ``--accel kdtree``) through its own ``main(["--res", "512",
+    "--spp", "1", "--out", ...])`` in this process, as a user runs it:
+    the PNG exists and the port's decoder reads it back as (512, 512, 3),
+    not all black; the film was finite; the scene lay on the card; a BVH
+    program launched K2 closest and any (a kd one K3, a dense one
+    neither), the counts set to 0 just before each program and read just
+    after.  Per program: build and frame seconds, rays/s, launches.
+    Then at 64^2, 1 spp, fixed Russian-roulette threshold and the square
+    filter: bunny's and the bistro stand-in's kernel-routed images
+    against their plain-routed ones (rtol 1e-5, atol 1e-7, flips
+    counted, at most 1%), and dragon's K3 image against its K2 image, both
+    built by its ``make`` (rtol 1e-5, atol 1e-6)."""
+    import tempfile
+    from lumo_tpu_torch.examples import NAMES
+    from lumo_tpu_torch.io import image
+    t_phase = time.perf_counter()
+    log("examples", card=repr(card_line()), res=f"{EX_RES}x{EX_RES}",
+        spp=EX_SPP)
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []     # a CPU rehearsal
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in [(name, ()) for name in NAMES] + [EX_KD]:
+            label = name + ("-kd" if extra else "")
+            out = os.path.join(tmp, f"{label}.png")
+            _reset_launches()
+            path, seen = run_program(name, ["--res", str(EX_RES), "--spp",
+                                            str(EX_SPP), "--out", out,
+                                            *extra, *on_cpu])
+            launches = _launch_counts()
+            r = seen["renderer"]
+            scene = r.scene
+            with open(path, "rb") as f:
+                png = image.decode_png(f.read())
+            accel = ("kdtree" if scene.kdtree is not None else
+                     "bvh" if scene.bvh is not None else "dense")
+            k2 = (launches["k2_closest"] > 0, launches["k2_any"] > 0)
+            k3 = (launches["k3_closest"] > 0, launches["k3_any"] > 0)
+            want = {"bvh": ((True, True), (False, False)),
+                    "kdtree": ((False, False), (True, True)),
+                    "dense": ((False, False), (False, False))}[accel]
+            log("examples", program=label, integrator=r._integrator,
+                accel=accel, tris=scene.n_tris, spheres=scene.n_spheres,
+                analytics=scene.n_analytic, device=str(scene.device),
+                build_s=round(seen["build_s"], 3), wall_s=seen["wall_s"],
+                rays=int(seen["rays"]),
+                rays_per_s=seen["rays"] / seen["wall_s"],
+                launches=json.dumps(launches).replace(" ", ""),
+                image_mean=float(seen["image"].mean()),
+                png_mean=float(png.mean()), black=not png.any())
+            faults = [what for what, bad in (
+                ("png", path != out or png.shape != (EX_RES, EX_RES, 3)),
+                # the JAX program renders the bistro stand-in black too
+                ("black png", not png.any() and name != "bistro"),
+                ("non-finite film", not np.isfinite(seen["image"]).all()),
+                ("not on the card", scene.device.type != dev.type),
+                ("launches", (k2, k3) != want)) if bad]
+            if faults:
+                raise AssertionError(f"examples {label}: {faults}, "
+                                     f"launches {launches}")
+
+    for name, (kind, configure) in EX_NEW.items():
+        scene, make_camera, illum = example_scene(name, dev, "bvh")
+        if scene.bvh is None:
+            raise AssertionError(f"examples {name}: no BVH, so no K2")
+        small = make_camera(EX_PARITY_RES)
+        runs = []     # per-lane depths: kernel-routed, then plain-routed
+
+        def frame():
+            runs.append([])
+            return integrator_frame(scene, small, kind, 1, illum, delta=1.0,
+                                    square=True, configure=configure,
+                                    lanes=runs[-1])
+        img = _routed_parity("examples", name, "bvh", frame, rtol=1e-5,
+                             atol=1e-7)
+        # each lane's depth follows every hit of its path(s), and holds
+        # where the image is black (the bistro stand-in, as the JAX
+        # program renders it: its environment sphere is a one-sided light
+        # seen from inside)
+        d_k, d_p = (torch.cat(r).cpu().numpy() for r in runs)
+        differ = int((d_k != d_p).sum())
+        log("examples", case="kernel-vs-plain-depths", scene=name,
+            lanes=d_k.size, differing=differ, mean_depth=float(d_k.mean()),
+            black_image=not img.any())
+        if differ > d_k.size // 100:
+            raise AssertionError(f"examples {name}: the kernel- and "
+                                 f"plain-routed paths differ")
+        del scene
+    images = {}
+    for accel in ("bvh", "kdtree"):
+        scene, make_camera, illum = example_scene("dragon", dev, accel)
+        images[accel] = integrator_frame(scene, make_camera(EX_PARITY_RES),
+                                         "path", 1, illum, delta=1.0,
+                                         square=True)[0]
+    flips, err = _image_parity(images["kdtree"], images["bvh"], 1e-5, 1e-6)
+    n_pix = EX_PARITY_RES ** 2
+    log("examples", case="kd-vs-bvh", scene="dragon",
+        res=f"{EX_PARITY_RES}x{EX_PARITY_RES}", pixels=n_pix, flips=flips,
+        image_max_abs_err=err, rtol=1e-5, atol=1e-6)
+    if flips > n_pix // 100:
+        raise AssertionError("examples: dragon's K3 and K2 renders disagree")
+    log("examples", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
+def run_phases(dev, started):
+    """Every phase on ``dev``, then the kernels' line; ``started["ranks"]``
+    gets ``[devices]``' ranks when they start."""
     t_start = time.perf_counter()
     phase_card()
     phase_soup(dev)
@@ -2498,6 +2652,9 @@ def main():
         "profile-kd", lambda: kd_frame(scene_kd, camera, SPP)[2], "render",
         "kd_traverse")
     log_per_frame("kd", nums_kd, per_frame_kd, launches_kd)
+    # [devices]' ranks set up (interpreter, card, scene) while [parity-kd]
+    # and the phases after it run, and wait for [devices]' go file
+    started["ranks"] = start_devices_ranks(dev, RES)
     phase_parity_kd(scene_kd, dev)
     phase_grad_kd(scene_kd, scene, parity)
     phase_render_kd_stream(scene_kd, camera)
@@ -2506,10 +2663,11 @@ def main():
     del scene_kd
     phase_materials(dev)
     phase_bdpt(scene, camera, dev, refs)
-    phase_devices(scene, camera, dev, refs)
+    phase_devices(scene, camera, dev, refs, started["ranks"])
     del scene
     phase_instance(camera, dev)
     phase_io(camera, dev)
+    phase_examples(dev)
     phase_quality(dev)
     sync = phase_sync(dev)
 
@@ -2542,6 +2700,27 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "lumo_tpu_torch")):
+        print("chip_smoke: run from the root of a lumo_tpu checkout "
+              "(lumo_tpu_torch/ not found)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    started = {}
+    try:
+        return run_phases(dev, started)
+    finally:
+        stop_devices_ranks(started.get("ranks"))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Image decoding on the host: PNG, Radiance .hdr (RGBE), normal and bump
-maps.
+"""Image decoding on the host: PNG, JPEG, Radiance .hdr (RGBE), normal
+and bump maps.
 
 Counterpart of ``lumo_tpu/io/image.py`` (reference ``src/image.rs``: PNG
 decode with palette, grey and alpha ``image.rs:19-79``, the sRGB transfer
@@ -8,7 +8,7 @@ bump maps ``image.rs:133-172``).  The JAX package decodes with PIL; the
 port has its own PNG decoder on ``zlib`` and numpy, which gives the
 pixels of PIL's ``Image.open(...).convert("RGB")`` and ``.convert("L")``:
 
-- non-interlaced PNG of colour type 0 (grey, 1 to 16 bits), 2 (RGB), 3
+- PNG of colour type 0 (grey, 1 to 16 bits), 2 (RGB), 3
   (palette, 1 to 8 bits), 4 (grey and alpha) and 6 (RGBA), 8 or 16 bits
   where the type allows, with the five scanline filters;
 - 16-bit samples keep their high byte, except 16-bit grey, which PIL
@@ -16,13 +16,22 @@ pixels of PIL's ``Image.open(...).convert("RGB")`` and ``.convert("L")``:
 - sub-byte grey scales to 0..255 (1 bit: x255, 2: x85, 4: x17); alpha
   and ``tRNS`` are dropped;
 - grey from RGB is PIL's integer luma, (19595 R + 38470 G + 7471 B +
-  0x8000) >> 16.
+  0x8000) >> 16;
+- interlaced (Adam7) PNG: each of the seven passes is unfiltered as an
+  image of its own and scattered into the image.
 
-Interlaced PNG and JPEG raise a ``ValueError`` naming the format
-(``ROADMAP.md`` lists them as gaps).  ``encode_png`` writes 8-bit RGB
-(the film's ``save_png``).  The Average and Paeth filters run as
-a Python loop over a row's bytes: a 1024^2 RGB texture takes about a
-second where every row uses them.
+JPEG (``decode_jpeg``) decodes in C++ (``native/jpeg_decoder.cpp``,
+built with g++ at first use) to the pixels of PIL, which decodes with
+libjpeg-turbo at its defaults: the islow integer IDCT, fancy upsampling
+and the fixed-point YCbCr tables.  It takes sequential and progressive
+Huffman-coded 8-bit JPEG of one (grey) or three components (YCbCr, or
+RGB under an Adobe transform 0), sampling factors 1 or 2, restart
+intervals; 12-bit, arithmetic-coded, lossless, hierarchical and
+CMYK/YCCK JPEG raise a ``ValueError`` naming the format.  EXIF
+orientation is ignored, as ``Image.open(...).convert("RGB")`` ignores
+it.  ``encode_png`` writes 8-bit RGB (the film's ``save_png``).  The
+Average and Paeth filters run as a Python loop over a row's bytes: a
+1024^2 RGB texture takes about a second where every row uses them.
 """
 from __future__ import annotations
 
@@ -32,6 +41,10 @@ import zlib
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8\xff"
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 # channels and allowed bit depths of each PNG colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
@@ -160,15 +173,25 @@ def decode_png(data: bytes, grey: bool = False) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG is not supported")
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise ValueError(f"bad PNG colour type {ctype} at bit depth {depth}")
+    if interlace not in (0, 1):
+        raise ValueError(f"unknown PNG interlace method {interlace}")
     channels = _CHANNELS[ctype]
     bits = channels * depth
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, (w * bits + 7) // 8,
-                     max(1, bits // 8))
-    s = _samples(rows, w, channels, depth)
+    raw = zlib.decompress(b"".join(idat))
+    # a plain image is one pass over every pixel
+    s = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in ADAM7 if interlace else ((0, 0, 1, 1),):
+        ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if ph <= 0 or pw <= 0:             # an empty pass has no scanlines
+            continue
+        row_bytes = (pw * bits + 7) // 8
+        n = ph * (row_bytes + 1)
+        sub = _unfilter(raw[pos:pos + n], ph, row_bytes, max(1, bits // 8))
+        s[y0::dy, x0::dx] = _samples(sub, pw, channels, depth)
+        pos += n
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without a PLTE chunk")
@@ -192,23 +215,40 @@ def decode_png(data: bytes, grey: bool = False) -> np.ndarray:
         rgb = s[..., :3]
         if depth == 16:
             rgb = rgb >> 8
-    rgb = rgb.astype(np.uint8)
+    return _to_rgb_or_grey(rgb.astype(np.uint8), grey)
+
+
+def _to_rgb_or_grey(samples: np.ndarray, grey: bool) -> np.ndarray:
+    """(H, W, 1) grey or (H, W, 3) RGB uint8 -> PIL's ``convert("RGB")``,
+    or with ``grey`` its ``convert("L")``."""
+    if samples.shape[-1] == 1:
+        g = samples[..., 0]
+        return g if grey else np.repeat(g[..., None], 3, axis=-1)
     if grey:
-        luma = rgb.astype(np.uint32) @ np.array(LUMA, np.uint32)
+        luma = samples.astype(np.uint32) @ np.array(LUMA, np.uint32)
         return ((luma + 0x8000) >> 16).astype(np.uint8)
-    return rgb
+    return samples
+
+
+def decode_jpeg(data: bytes, grey: bool = False) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB as PIL's ``convert("RGB")`` gives
+    it, or with ``grey`` (H, W) uint8 as its ``convert("L")`` does (the
+    module docstring lists what it takes).  EXIF orientation is ignored,
+    as PIL's ``Image.open(...).convert("RGB")`` ignores it."""
+    from lumo_tpu_torch import native
+    return _to_rgb_or_grey(native.decode_jpeg(data), grey)
 
 
 def _decode(source, grey=False) -> np.ndarray:
     data = _read_bytes(source)
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG images are not supported: the port decodes "
-                         "PNG only")
+    if data.startswith(JPEG_SOI):
+        return decode_jpeg(data, grey)
     return decode_png(data, grey)
 
 
 def load_png(source) -> np.ndarray:
-    """PNG (a path or a binary file) -> linear RGB (H, W, 3) float64."""
+    """PNG or JPEG (a path or a binary file) -> linear RGB (H, W, 3)
+    float64."""
     return _srgb_to_linear(_decode(source))
 
 

@@ -1,11 +1,15 @@
-"""Native (C++) host accelerator builders, loaded with ctypes.
+"""Native (C++) host code, loaded with ctypes: the tree builders and the
+JPEG decoder.
 
 Counterpart of ``lumo_tpu/native/__init__.py``.  ``bvh_builder.cpp`` and
 ``kdtree_builder.cpp`` are this package's own copies of the threaded
-binned-SAH BVH builder and the Wald-Havran SAH kd-tree builder; each is
-compiled with g++ at first use into its own library in the repository's
-``build/`` directory.  A 327k-triangle build in numpy takes minutes, so a
-scene that large needs these libraries: a failed compile raises.
+binned-SAH BVH builder and the Wald-Havran SAH kd-tree builder;
+``jpeg_decoder.cpp`` decodes JPEG as libjpeg does (the JAX package reads
+it through PIL; ``io/image.py``).  Each is compiled with g++ at first use
+into its own library in the repository's ``build/`` directory.  A
+327k-triangle build in numpy takes minutes and a bit-serial Huffman
+decode in Python as long, so these libraries are needed: a failed
+compile raises.
 """
 from __future__ import annotations
 
@@ -23,19 +27,28 @@ _libs: dict = {}
 _F = ctypes.POINTER(ctypes.c_float)
 _I = ctypes.POINTER(ctypes.c_int32)
 _L = ctypes.POINTER(ctypes.c_int64)
+_B = ctypes.POINTER(ctypes.c_uint8)
+_SOURCES = {"bvh": "bvh_builder", "kdtree": "kdtree_builder",
+            "jpeg": "jpeg_decoder"}
+# each library's functions and their argtypes (every one returns an int)
 _ARGTYPES = {
-    "bvh": ("lumo_build_bvh",
-            [_F, _F, ctypes.c_int64, _F, _F, _I, _I, _I, _I, _I, _L, _I]),
-    "kdtree": ("lumo_build_kdtree",
+    "bvh": {"lumo_build_bvh":
+            [_F, _F, ctypes.c_int64, _F, _F, _I, _I, _I, _I, _I, _L, _I]},
+    "kdtree": {"lumo_build_kdtree":
                [_F, _F, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                _F, _I, _I, _I, _I, _I, _F, _F, _L, _L, _I]),
+                _F, _I, _I, _I, _I, _I, _F, _F, _L, _L, _I]},
+    "jpeg": {"lumo_jpeg_header": [ctypes.c_char_p, ctypes.c_int64, _I,
+                                  ctypes.c_char_p, ctypes.c_int64],
+             "lumo_jpeg_decode": [ctypes.c_char_p, ctypes.c_int64, _B,
+                                  ctypes.c_char_p, ctypes.c_int64]},
 }
-_lock = threading.Lock()
+_locks = {which: threading.Lock() for which in _SOURCES}
 
 
 def _paths(which: str):
-    return (os.path.join(_DIR, f"{which}_builder.cpp"),
-            os.path.join(BUILD_DIR, f"liblumo_{which}_builder.so"))
+    name = _SOURCES[which]
+    return (os.path.join(_DIR, f"{name}.cpp"),
+            os.path.join(BUILD_DIR, f"liblumo_{name}.so"))
 
 
 def _compile(src: str, so: str):
@@ -50,18 +63,18 @@ def _compile(src: str, so: str):
 
 
 def load(which: str = "bvh"):
-    """The ctypes library of builder ``which`` ("bvh" or "kdtree"),
+    """The ctypes library ``which`` ("bvh", "kdtree" or "jpeg"),
     compiled first if missing or stale."""
-    with _lock:
+    with _locks[which]:
         if which in _libs:
             return _libs[which]
         src, so = _paths(which)
         if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
             _compile(src, so)
         lib = ctypes.CDLL(so)
-        name, argtypes = _ARGTYPES[which]
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = argtypes
+        for name, argtypes in _ARGTYPES[which].items():
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = argtypes
         _libs[which] = lib
         return lib
 
@@ -144,3 +157,21 @@ def build_kdtree(prim_lo: np.ndarray, prim_hi: np.ndarray):
         node_cap *= 4
         ref_cap *= 4
     raise RuntimeError(f"native kd-tree build failed ({rc}) for {P} prims")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, C) uint8 samples as libjpeg gives them: C = 1
+    (grey) or 3 (RGB).  A format the decoder does not take raises a
+    ``ValueError`` naming it."""
+    lib = load("jpeg")
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    info = np.zeros(3, np.int32)
+    if lib.lumo_jpeg_header(data, len(data), _ip(info), err, len(err)):
+        raise ValueError(err.value.decode())
+    w, h, c = (int(x) for x in info)
+    out = np.empty((h, w, c), np.uint8)
+    if lib.lumo_jpeg_decode(data, len(data), out.ctypes.data_as(_B), err,
+                            len(err)):
+        raise ValueError(err.value.decode())
+    return out

@@ -6,9 +6,12 @@ with ``lumo_tpu_torch.scene.scene.from_numpy``.  Everything runs on the
 CPU.
 """
 import importlib
+import os
 
 import numpy as np
 import torch
+
+from lumo_tpu_torch.examples import NAMES as EXAMPLES
 
 SCENE_FIELDS = ("tri_a", "tri_b", "tri_c", "tri_na", "tri_nb", "tri_nc",
                 "tri_uva", "tri_uvb", "tri_uvc", "tri_mat", "light_prim",
@@ -22,6 +25,8 @@ INST_FIELDS = ("a", "b", "c", "na", "nb", "nc", "uva", "uvb", "uvc", "minv",
                "mfwd", "trans", "mat")
 
 BLOB_SEED = 11
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
 
 
 def blob_box(pkg, subdiv):
@@ -124,150 +129,75 @@ def t(x):
 
 
 # ---------------------------------------------------------------------------
-# the example programs' scenes (``examples/*.py``), each built with the
-# same calls as its program; meshes the programs load from ``scenes/`` are
-# their procedural stand-in blobs
-
-EXAMPLES = ("dragon", "dof", "medium", "circle", "nefertiti", "conference",
-            "box", "caustics", "cornell")
-
-
-def _blob_mesh(pkg, subdiv, seed, amp):
-    """``examples/_common.py::load_mesh_or_blob``'s stand-in mesh."""
-    shapes = importlib.import_module(f"{pkg}.scene.shapes")
-    Mesh = importlib.import_module(f"{pkg}.scene.instance").Mesh
-    v, f, vn = shapes.blob(subdiv=subdiv, seed=seed, amp=amp)
-    return Mesh(v, f, normals=vn)
+# the example programs: the JAX package's ``examples/*.py`` run as a user
+# runs them, with a recording Renderer, and the port's programs
+# (``lumo_tpu_torch.examples``); meshes the programs load from
+# ``./scenes/`` are their procedural stand-in blobs unless a test writes
+# the files
 
 
-def example_scene(pkg, name, res):
-    """(SceneBuilder, camera kwargs, camera function name, renderer
-    illuminant or None) of example ``name`` in package ``pkg``; the camera
-    is ``getattr(camera_module, fn)(resolution=(res, res), **kwargs)``."""
-    import math
-    PI = math.pi
-    mod = lambda m: importlib.import_module(f"{pkg}.{m}")
-    Material = mod("scene.materials").Material
-    SceneBuilder = mod("scene.scene").SceneBuilder
-    Mesh = mod("scene.instance").Mesh
-    uplift = mod("color.uplift")
-    cam = {}
-    if name == "dragon":
-        sb = mod("scene.cornell").empty_box(
-            uplift.from_srgb8(242, 242, 242).reshape(4),
-            Material.diffuse(uplift.from_srgb8(255, 0, 0).reshape(4)),
-            Material.diffuse(uplift.from_srgb8(0, 255, 0).reshape(4)))
-        magenta = uplift.from_srgb8(255, 0, 255).reshape(4)
-        (_blob_mesh(pkg, 5, 13, 0.25).to_unit_size().to_origin()
-         .rotate_y(5.0 * PI / 8.0).scale_uniform(1.3).set_y(-0.799)
-         .translate(0.0, 0.0, -1.4)
-         .add_to(sb, Material.transparent(magenta, 0.03, 1.5)))
-        return sb, cam, "build_camera", None
-    if name == "dof":
-        shapes = mod("scene.shapes")
-        sb = SceneBuilder()
-        checker = sb.textures.checkerboard((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
-                                           100.0)
-        gv, gf = shapes.grid_plane(n=1, size=10.0, y=0.0)
-        Mesh(gv, gf).translate(0.0, -1.0, 0.0).add_to(
-            sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=checker))
-        lv, lf = shapes.grid_plane(n=1, size=3.0, y=0.0)
-        Mesh(lv, lf).rotate_z(PI).translate(0.0, 8.0, -1.5).add_to(
-            sb, Material.light(0.25 * np.ones(4), two_sided=True))
-        teapot = _blob_mesh(pkg, 4, 5, 0.18).to_unit_size()
-        for i in range(3):
-            marble = sb.textures.marble((1.0, 245 / 255.0, 1.0))
-            (teapot.clone().to_origin().rotate_y(-PI / 4)
-             .translate(0.0, -0.75, -1.0 * i)
-             .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
-        o = np.array([-0.75, 0.25, 0.0])
-        tw = np.array([0.0, -0.75, -1.0])
-        cam = dict(origin=tuple(o), towards=tuple(tw), lens_radius=0.03,
-                   focal_length=float(np.linalg.norm(o - tw)),
-                   kind=mod("camera").ORTHOGRAPHIC)
-        return sb, cam, "build_camera", None
-    if name == "medium":
-        sb = mod("scene.cornell").cornell_box()
-        sb.set_medium((0.5, 0.5, 0.5), (0.1, 0.1, 0.1), 0.9)
-        return sb, cam, "cornell_camera", "CORNELL"
-    if name == "circle":
-        def hsv_to_rgb(h):
-            def f(n):
-                k = (n + h / (PI / 3.0)) % 6.0
-                return 1.0 - np.clip(min(k, 4.0 - k), 0.0, 1.0)
-            return uplift.from_srgb8(int(f(5.0) * 255), int(f(3.0) * 255),
-                                     int(f(1.0) * 255)).reshape(4)
-        sb = SceneBuilder()
-        ground, r = -0.2, 0.2
-        sb.add_disk((0.0, ground, 0.0), (0.0, 1.0, 0.0), 100.0,
-                    Material.mirror())
-        sb.add_sphere((0.0, ground + r + 0.1, 0.0), r,
-                      Material.light(0.01 * np.ones(4), illuminant="D65"))
-        for i in range(8):
-            theta = (i / 8) * 2.0 * PI + PI / 8
-            sb.add_sphere((math.cos(theta), ground + r, math.sin(theta)), r,
-                          Material.diffuse(hsv_to_rgb(theta - PI / 8)))
-        cam = dict(origin=(0.0, 1.0, 1.5), towards=(0.0, -0.5, 0.0),
-                   up=(0.0, 1.0, -1.0))
-        return sb, cam, "build_camera", None
-    if name == "nefertiti":
-        sb = SceneBuilder()
-        black = Material.diffuse((0.0, 0.0, 0.0))
-        sb.add_disk((0.0, -1.0, 0.0), (0.0, 1.0, 0.0), 10.0, black)
-        sb.add_disk((0.0, 1.0, 0.0), (0.0, -1.0, 0.0), 10.0, black)
-        sb.add_disk((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), 10.0, black)
-        sb.add_rectangle([-0.4, 0.99, -1.4], [-0.4, 0.99, -0.6],
-                         [0.4, 0.99, -0.6], Material.light(1.5 * np.ones(4)))
-        marble = sb.textures.marble((0.9, 0.85, 0.8))
-        (_blob_mesh(pkg, 5, 21, 0.18).to_unit_size().to_origin()
-         .rotate_x(-PI / 2).rotate_y(PI).set_y(-0.99)
-         .translate(0.0, 0.0, -1.0)
-         .add_to(sb, Material.diffuse((1.0, 1.0, 1.0), kd_tex=marble)))
-        cam = dict(origin=(0.1, 0.2, 0.3), towards=(0.0, 0.1, -1.0))
-        return sb, cam, "build_camera", None
-    if name == "conference":
-        shapes = mod("scene.shapes")
-        sb = SceneBuilder()
-        white = Material.diffuse((0.73, 0.71, 0.68))
-        wood = Material.diffuse((0.44, 0.28, 0.16))
-        gv, gf = shapes.grid_plane(n=1, size=1000.0, y=0.0)
-        Mesh(gv, gf).translate(450.0, 0.0, 0.0).add_to(sb, white)
-        Mesh(gv, gf).rotate_z(np.pi).translate(450.0, 500.0, 0.0).add_to(
-            sb, white)
-        table = np.diag([400.0, 10.0, 150.0, 1.0])
-        table[:3, 3] = (450.0, 90.0, 150.0)
-        sb.add_box(wood, transform=table)
-        for dx in (-120.0, 0.0, 120.0):
-            tr = np.eye(4)
-            tr[:3, 3] = (450.0 + dx, 40.0, 150.0)
-            tr[0, 0] = tr[1, 1] = tr[2, 2] = 45.0
-            sb.add_box(white, transform=tr)
-        sb.add_sphere((-200.0, 40.0, -400.0), 10.0, Material.light(np.ones(4)))
-        sb.add_sphere((900.0, 300.0, -600.0), 10.0, Material.light(np.ones(4)))
-        cam = dict(origin=(-50.0, 400.0, -350.0), towards=(500.0, 0.0, 250.0))
-        return sb, cam, "build_camera", None
-    if name in ("box", "caustics"):
-        magenta = uplift.from_srgb8(255, 0, 255).reshape(4)
-        cyan = uplift.from_srgb8(0, 255, 255).reshape(4)
-        sb = mod("scene.cornell").empty_box(
-            uplift.from_srgb8(242, 242, 242).reshape(4),
-            Material.diffuse(magenta), Material.diffuse(cyan))
-        if name == "box":
-            sb.add_sphere((-0.45, -0.5, -1.5), 0.25, Material.mirror())
-            sb.add_sphere((0.45, -0.5, -1.3), 0.25, Material.glass())
-            return sb, cam, "build_camera", None
-        suzanne = _blob_mesh(pkg, 4, 7, 0.15).to_unit_size()
-        (suzanne.clone().to_origin().rotate_y(-PI / 8).rotate_z(PI / 8)
-         .rotate_x(-PI / 8).translate(0.5, -0.3, -1.0)
-         .add_to(sb, Material.mirror()))
-        (suzanne.clone().to_origin().rotate_y(PI / 8).rotate_z(-PI / 8)
-         .rotate_x(PI / 16).translate(-0.35, 0.25, -1.25)
-         .add_to(sb, Material.glass()))
-        return sb, dict(origin=(0.0, 0.0, 2.0), zoom=3.0), "build_camera", None
-    if name == "cornell":
-        return (mod("scene.cornell").cornell_box(), cam, "cornell_camera",
-                "CORNELL")
-    raise ValueError(name)
+def run_jax_program(name, argv, accel="bvh"):
+    """Run ``examples/<name>.py`` with ``argv`` through ``runpy``, its
+    ``Renderer`` replaced by a recorder (the real class, whose ``render``
+    returns zeros and whose ``save_png`` records the path and writes
+    nothing) and ``SceneBuilder.build`` wrapped to record the builder and
+    build with ``accel``: (builder, recorder)."""
+    import runpy
+    import sys
+    from unittest import mock
+
+    from lumo_tpu import renderer as jrenderer
+    from lumo_tpu.scene import scene as jscene
+
+    made, builders = [], []
+
+    class Recorder(jrenderer.Renderer):
+        saved = None
+
+        def __init__(self, scene, camera):
+            super().__init__(scene, camera)
+            made.append(self)
+
+        def render(self, verbose=True):
+            w, h = self.camera.resolution
+            return np.zeros((h, w, 3), np.float32)
+
+        def save_png(self, img, path):
+            self.saved = path
+
+    real_build = jscene.SceneBuilder.build
+
+    def build(self, *args, **kwargs):
+        builders.append(self)
+        return real_build(self, *args, **{**kwargs, "accel": accel})
+
+    path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+    with mock.patch.object(jrenderer, "Renderer", Recorder), \
+            mock.patch.object(jscene.SceneBuilder, "build", build), \
+            mock.patch.object(sys, "argv", [path] + list(argv)), \
+            mock.patch.object(sys, "path", [EXAMPLES_DIR] + sys.path):
+        runpy.run_path(path, run_name="__main__")
+    assert len(made) == 1 and len(builders) == 1, (name, made, builders)
+    return builders[0], made[0]
+
+
+def port_program(name, argv):
+    """``lumo_tpu_torch.examples.<name>.make`` on ``argv``: the
+    configured Renderer."""
+    mod = importlib.import_module(f"lumo_tpu_torch.examples.{name}")
+    return mod.make(mod.parse(list(argv)))
+
+
+def example_scene(pkg, name, res, accel="bvh"):
+    """(scene, camera, renderer illuminant) of example program ``name`` at
+    ``res``^2 on the CPU, as the program of ``pkg`` (``"lumo_tpu"`` or
+    ``"lumo_tpu_torch"``) builds them."""
+    argv = ["--cpu", "--res", str(res)]
+    if pkg == "lumo_tpu":
+        r = run_jax_program(name, argv, accel)[1]
+    else:
+        r = port_program(name, argv + ["--accel", accel])
+    return r.scene, r.camera, r._illuminant
 
 
 def _column_t_max(fn):
@@ -300,23 +230,18 @@ def render_example(name, accel, res, jax_eager=False, integrator="path",
     from unittest import mock
 
     import jax
-    from lumo_tpu import camera as jcam
     from lumo_tpu.geometry import analytic as jan
     from lumo_tpu.geometry import intersect as jgeo
     from lumo_tpu.renderer import Renderer as JRenderer
-    from lumo_tpu_torch import camera as tcam
     from lumo_tpu_torch import film as tfilm
     from lumo_tpu_torch.renderer import Renderer as TRenderer
     from lumo_tpu import film as jfilm
-    sb_j, cam, fn, illuminant = example_scene("lumo_tpu", name, res)
-    sb_t = example_scene("lumo_tpu_torch", name, res)[0]
-    js = sb_j.build(accel=accel)
-    ts = sb_t.build(accel=accel, device="cpu")
-    jr = (JRenderer(js, getattr(jcam, fn)(resolution=(res, res), **cam))
+    js, cam_j, illuminant = example_scene("lumo_tpu", name, res, accel)
+    ts, cam_t, _ = example_scene("lumo_tpu_torch", name, res, accel)
+    jr = (JRenderer(js, cam_j)
           .samples(1).devices(1).seed(3).fixed_rr_delta(1.0)
           .pixel_filter(jfilm.PixelFilter.square()))
-    tr = (TRenderer(ts, getattr(tcam, fn)(resolution=(res, res),
-                                          device="cpu", **cam))
+    tr = (TRenderer(ts, cam_t)
           .samples(1).seed(3).fixed_rr_delta(1.0)
           .pixel_filter(tfilm.PixelFilter.square()))
     if illuminant:

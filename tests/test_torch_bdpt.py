@@ -344,9 +344,7 @@ def test_batched_strategies_equal_single():
     ``examples/box.py``'s scene (mirror, glass) at depth 8."""
     from _torch_port import example_scene
     from lumo_tpu_torch.sampling.samplers import _hash_u32
-    sb, kw, fn, _ = example_scene("lumo_tpu_torch", "box", 16)
-    scene = sb.build(device="cpu")
-    cam = getattr(tcam, fn)(resolution=(16, 16), device="cpu", **kw)
+    scene, cam, _ = example_scene("lumo_tpu_torch", "box", 16)
     rng = np.random.default_rng(2)
     n, depth = 256, 8
     raster = torch.as_tensor(rng.uniform(0, 16, (n, 2)).astype(np.float32))

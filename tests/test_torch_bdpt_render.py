@@ -44,26 +44,29 @@ def _one_thread():
 
 
 def _case(name):
-    """(JAX scene, camera function name, camera kwargs)."""
-    if name == "cornell":
-        return cornell_box().build(), "cornell_camera", {}
+    """(JAX scene, JAX camera, port camera)."""
     if name == "box":
-        sb, kw, fn, _ = example_scene("lumo_tpu", "box", RES)
-        return sb.build(), fn, kw
-    sb = empty_box((0.9, 0.9, 0.9), Material.diffuse((0.8, 0.1, 0.1)),
-                   Material.lambertian((0.1, 0.8, 0.1)))
-    if name == "medium":
-        sb.set_medium((0.02, 0.03, 0.001), (0.175, 0.125, 0.11), 0.9)
-        return sb.build(), "build_camera", {}
-    return sb.build(), "build_camera", {"kind": jcam.ORTHOGRAPHIC}
+        js, cj, _ = example_scene("lumo_tpu", "box", RES)
+        return js, cj, example_scene("lumo_tpu_torch", "box", RES)[1]
+    if name == "cornell":
+        js, fn, kw = cornell_box().build(), "cornell_camera", {}
+    else:
+        sb = empty_box((0.9, 0.9, 0.9), Material.diffuse((0.8, 0.1, 0.1)),
+                       Material.lambertian((0.1, 0.8, 0.1)))
+        fn, kw = "build_camera", {}
+        if name == "medium":
+            sb.set_medium((0.02, 0.03, 0.001), (0.175, 0.125, 0.11), 0.9)
+        else:
+            kw = {"kind": jcam.ORTHOGRAPHIC}
+        js = sb.build()
+    return (js, getattr(jcam, fn)(resolution=(RES, RES), **kw),
+            getattr(tcam, fn)(resolution=(RES, RES), device="cpu", **kw))
 
 
 @pytest.fixture(scope="module", params=["cornell", "box", "medium",
                                         "orthographic"])
 def outputs(request):
-    js, fn, kw = _case(request.param)
-    cj = getattr(jcam, fn)(resolution=(RES, RES), **kw)
-    ct = getattr(tcam, fn)(resolution=(RES, RES), device="cpu", **kw)
+    js, cj, ct = _case(request.param)
     rng = np.random.default_rng(5)
     raster = rng.uniform(0, RES, (N, 2)).astype(np.float32)
     o, d = (np.asarray(x) for x in cj.generate_ray(jnp.asarray(raster),

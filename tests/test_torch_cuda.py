@@ -558,3 +558,23 @@ def test_two_gloo_ranks_on_one_card_match_one_device(card, tmp_path):
     assert np.array_equal(outs[0]["image"], outs[1]["image"])
     assert np.isfinite(one).all() and one.mean() > 0
     np.testing.assert_allclose(outs[0]["image"], one, rtol=1e-4, atol=1e-5)
+
+
+def test_example_program_runs_on_the_card(card, tmp_path):
+    """A user's command, ``python -m lumo_tpu_torch.examples.cornell --res
+    32 --spp 1``, in a subprocess on the card: exit code 0 and a 32x32
+    PNG that the port's decoder reads."""
+    import os
+    import subprocess
+    import sys
+    from lumo_tpu_torch.io import image
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "cornell.png"
+    res = subprocess.run(
+        [sys.executable, "-m", "lumo_tpu_torch.examples.cornell", "--res",
+         "32", "--spp", "1", "--out", str(out)], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "saved" in res.stdout
+    assert image.decode_png(out.read_bytes()).shape == (32, 32, 3)

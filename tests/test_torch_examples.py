@@ -1,5 +1,6 @@
-"""Slice 5 as a whole: the example programs of ``examples/`` rebuilt in
-the port with the same calls, rendered through the port's ``Renderer``
+"""Slice 5 as a whole: the example programs of ``examples/`` and their
+counterparts in ``lumo_tpu_torch.examples`` (each scene as its program
+builds it), rendered through the port's ``Renderer``
 and the JAX ``Renderer`` at 16x16, one sample per pixel (fixed Russian
 roulette threshold, square pixel filter: each pixel is one sample), on
 the CPU.  This file holds the dense scenes (``medium``, ``circle``,

@@ -1,8 +1,8 @@
 """The BDPT example programs as a whole: ``examples/box.py`` (a mirror and
 a glass sphere in an empty box, its wide Gaussian filter) and
 ``examples/caustics.py`` (a mirror and a glass mesh, the stand-in blob
-for suzanne, through the BVH and the kd-tree), each scene rebuilt in the
-port with the program's calls and rendered through both packages'
+for suzanne, through the BVH and the kd-tree), each scene as the JAX
+program and the port's program build it, rendered through both packages'
 ``Renderer(...).integrator("bdpt")`` at 16x16, one sample per pixel,
 fixed Russian-roulette threshold 1 and ``bdpt_depth`` left automatic
 (12: both scenes hold glass); the JAX package jit-compiled.

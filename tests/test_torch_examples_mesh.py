@@ -1,8 +1,8 @@
 """Slice 5 as a whole, the example scene with a tree of its own:
 ``dragon`` (rough dispersive glass on a 20,480-triangle mesh in the empty
-box) through the plain version of K2 and of K3, rebuilt in the port with
-the example's calls and rendered through both packages' ``Renderer`` as
-in ``test_torch_examples.py`` (16x16, one sample per pixel, square
+box) through the plain version of K2 and of K3, as the JAX program and
+the port's program build it, rendered through both packages'
+``Renderer`` as in ``test_torch_examples.py`` (16x16, one sample per pixel, square
 filter; the JAX package jit-compiled), by that file's rule: 99% of the
 non-flipped pixels within rtol 1e-3, atol 1e-6, the mean within 1e-4
 relative, at most 1% flips.  The textured mesh scenes are in

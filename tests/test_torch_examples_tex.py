@@ -1,8 +1,8 @@
 """Slice 5 as a whole, the textured example scenes with a BVH:
 ``nefertiti`` (marble texture, analytic disks, quad light) and ``dof``
-(checker and marble textures, orthographic thin-lens camera), rebuilt in
-the port with the examples' calls and rendered through both packages'
-``Renderer`` as in ``test_torch_examples.py`` (16x16, one sample per
+(checker and marble textures, orthographic thin-lens camera), as the
+JAX programs and the port's programs build them, rendered through both
+packages' ``Renderer`` as in ``test_torch_examples.py`` (16x16, one sample per
 pixel, square filter; the JAX package jit-compiled), by that file's rule
 (99% of the non-flipped pixels within rtol 1e-3, atol 1e-6, mean within
 1e-4 relative, at most 1% flips), except for ``dof``: at least 95%

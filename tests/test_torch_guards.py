@@ -1,7 +1,7 @@
-"""Guards on the port's boundaries: lumo_tpu_torch (its host I/O
-included), chip_smoke.py and the ranks of the multi-process tests
-(tests/_torch_shard_worker.py) import neither JAX, nor anything of lumo_tpu,
-nor PIL (the port needs torch, numpy and the standard library only), and
+"""Guards on the port's boundaries: lumo_tpu_torch (its host I/O and its
+example programs included), chip_smoke.py and the ranks of the
+multi-process tests (tests/_torch_shard_worker.py) import neither JAX, nor
+anything of lumo_tpu, nor PIL (the port needs torch, numpy and the standard library only), and
 the entry points run on the card unless the caller names another
 device."""
 import os
@@ -42,7 +42,9 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 for banned in ("jax", "PIL"):
     assert banned not in sys.modules or sys.modules[banned] is None, banned
-assert {"lumo_tpu_torch.io.obj", "lumo_tpu_torch.io.image"} <= set(names)
+assert {"lumo_tpu_torch.io.obj", "lumo_tpu_torch.io.image",
+        "lumo_tpu_torch.examples",
+        "lumo_tpu_torch.examples.cornell"} <= set(names)
 print(len(names))
 """
 
@@ -53,7 +55,7 @@ def test_port_imports_neither_jax_nor_lumo_tpu():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 45     # every module was imported
+    assert int(res.stdout.split()[-1]) >= 65     # every module was imported
 
 
 def _box():

@@ -3,15 +3,20 @@
 Mirrors the 8 tests of ``tests/test_io.py`` (the .obj/.mtl parser, the
 builder of an .obj scene, the fluent bake, sphere instances, the ORM
 branch, the ``file://`` texture entry point and the committed real asset
-``scenes/demo.zip``), and holds the port's own PNG decoder
-(``lumo_tpu_torch/io/image.py``) bit for bit against PIL, which the JAX
-package decodes with: the images of ``scenes/demo.zip``, the 4x4 grey
-image ``tests/test_io.py`` writes as ``scenes/tex.png``, and synthetic
-PNGs of every colour type, bit depth and scanline filter.
+``scenes/demo.zip``), and holds the port's own PNG and JPEG decoders
+(``lumo_tpu_torch/io/image.py``, ``native/jpeg_decoder.cpp``) bit for
+bit against PIL, which the JAX package decodes with: the images of
+``scenes/demo.zip``, the 4x4 grey image ``tests/test_io.py`` writes as
+``scenes/tex.png``, synthetic PNGs of every colour type, bit depth and
+scanline filter, plain and interlaced (Adam7), and JPEGs written by PIL
+(4:4:4, 4:2:2, 4:2:0 and 4:4:0, baseline and progressive, standard and
+optimised tables, grey, RGB, restart intervals).  The tolerance is
+bit-equality throughout.
 """
 import io
 import os
 import struct
+import time
 import zipfile
 import zlib
 
@@ -23,6 +28,7 @@ from PIL import Image
 from _torch_port import SCENE_FIELDS, port_scene_from_jax
 from lumo_tpu.io import image as jimage
 from lumo_tpu.io import obj as jobj
+from lumo_tpu_torch import native
 from lumo_tpu_torch.io import image as timage
 from lumo_tpu_torch.io import obj as tobj
 from lumo_tpu_torch.scene.instance import Mesh, sphere_instance, translation
@@ -264,10 +270,14 @@ def _paeth(a, b, c):
     return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
 
 
-def encode_png(samples, ctype, depth, filters=(0, 1, 2, 3, 4), palette=None,
-               interlace=0):
-    """A PNG of integer ``samples`` (H, W, C), each row filtered by the
-    next type of ``filters`` in turn, the data split over two IDATs."""
+# Adam7 passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _filtered(samples, depth, filters):
+    """The scanlines of ``samples`` (H, W, C), each row filtered by the
+    next type of ``filters`` in turn, with their filter bytes."""
     h, w, _ = samples.shape
     if depth < 8:
         per = 8 // depth
@@ -293,6 +303,22 @@ def encode_png(samples, ctype, depth, filters=(0, 1, 2, 3, 4), palette=None,
             enc[i] = (row[i] - pred) & 0xFF
         out += bytes([kind]) + bytes(enc)
         prior = row
+    return out
+
+
+def encode_png(samples, ctype, depth, filters=(0, 1, 2, 3, 4), palette=None,
+               interlace=0):
+    """A PNG of integer ``samples`` (H, W, C), each row filtered by the
+    next type of ``filters`` in turn, the data split over two IDATs; with
+    ``interlace`` the seven Adam7 passes, each filtered as an image of its
+    own (an empty pass has no scanlines)."""
+    h, w, _ = samples.shape
+    if interlace:
+        out = b"".join(_filtered(samples[y0::dy, x0::dx], depth, filters)
+                       for y0, x0, dy, dx in ADAM7
+                       if y0 < h and x0 < w)
+    else:
+        out = _filtered(samples, depth, filters)
     png = timage.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
         ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
@@ -366,17 +392,161 @@ def test_encoder_round_trip_and_film_save(tmp_path):
         timage.encode_png(lin)
 
 
+@pytest.mark.parametrize("ctype,depth", CASES)
+def test_adam7_equals_pil(ctype, depth):
+    """Interlaced (Adam7) PNGs of every colour type and bit depth, at sizes
+    where some passes are empty (1x1, 3x2) and where every pass is partly
+    filled; RGB and grey."""
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    rng = np.random.default_rng(31 * ctype + depth)
+    for h, w in ((1, 1), (3, 2), (9, 13), (16, 16)):
+        s = rng.integers(0, 1 << depth, (h, w, channels))
+        pal = rng.integers(0, 256, (1 << depth, 3)) if ctype == 3 else None
+        _assert_like_pil(encode_png(s, ctype, depth, palette=pal,
+                                    interlace=1))
+
+
+def _jpeg(arr, **kw):
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+def _photo(h, w, seed):
+    """A smooth colour image with noise: every band of the DCT is used."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([128 + 100 * np.sin(x / 7.0 + c) * np.cos(y / 5.0 - c)
+                     for c in range(3)], -1)
+    return np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def _assert_jpeg_like_pil(data):
+    """Bit-equal to PIL (libjpeg-turbo at its defaults), RGB and grey."""
+    pil = Image.open(io.BytesIO(data))
+    np.testing.assert_array_equal(timage.decode_jpeg(data),
+                                  np.asarray(pil.convert("RGB")))
+    np.testing.assert_array_equal(timage.decode_jpeg(data, grey=True),
+                                  np.asarray(pil.convert("L")))
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_jpeg_equals_pil(subsampling, progressive):
+    """4:4:4, 4:2:2 and 4:2:0, baseline and progressive, standard and
+    optimised Huffman tables, qualities 50 and 95, sizes that are and are
+    not multiples of the MCU, smooth and noise images: bit-equal."""
+    rng = np.random.default_rng(3 * subsampling + progressive)
+    for h, w in ((23, 37), (64, 64), (1, 1), (17, 5)):
+        for optimize, quality in ((False, 50), (True, 95), (False, 95)):
+            for arr in (_photo(h, w, h * w),
+                        rng.integers(0, 256, (h, w, 3)).astype(np.uint8)):
+                _assert_jpeg_like_pil(_jpeg(
+                    arr, subsampling=subsampling, progressive=progressive,
+                    optimize=optimize, quality=quality))
+
+
+@pytest.mark.parametrize("kind", ["grey", "restart-blocks", "restart-rows",
+                                  "rgb", "440", "loaders"])
+def test_jpeg_variants_equal_pil(kind, tmp_path):
+    """Grey JPEG; restart intervals (RSTn markers) in baseline and
+    progressive scans; an RGB JPEG (Adobe transform 0, no colour
+    transform); 4:4:0 (luma sampled 1x2: a square 4:2:2 JPEG with its
+    luma factors swapped, which keeps the scan's block count); and the
+    loaders on a JPEG file against the JAX package's: bit-equal."""
+    arr = _photo(40, 53, 7)
+    if kind == "grey":
+        for prog in (False, True):
+            _assert_jpeg_like_pil(_jpeg(arr[..., 1], progressive=prog))
+            _assert_jpeg_like_pil(_jpeg(arr[:23, :37, 0], progressive=prog,
+                                        optimize=True))
+    elif kind.startswith("restart"):
+        kw = ({"restart_marker_blocks": 3} if kind == "restart-blocks"
+              else {"restart_marker_rows": 1})
+        for prog in (False, True):
+            data = _jpeg(arr, subsampling=2, progressive=prog, **kw)
+            assert b"\xff\xd0" in data and b"\xff\xdd" in data
+            _assert_jpeg_like_pil(data)
+    elif kind == "rgb":
+        data = _jpeg(arr, keep_rgb=True, subsampling=0)
+        assert b"Adobe" in data
+        _assert_jpeg_like_pil(data)
+    elif kind == "440":
+        for n in (37, 64):
+            for prog in (False, True):
+                data = bytearray(_jpeg(_photo(n, n, n), subsampling=1,
+                                       progressive=prog))
+                sof = data.index(b"\xff\xc2" if prog else b"\xff\xc0")
+                assert data[sof + 11] == 0x21       # luma 2x1
+                data[sof + 11] = 0x12
+                _assert_jpeg_like_pil(bytes(data))
+    else:
+        path = tmp_path / "tex.jpg"
+        Image.fromarray(arr).save(path, format="JPEG", quality=85)
+        for fn in ("load_png", "load_normal_map", "bump_to_normal_map"):
+            np.testing.assert_array_equal(getattr(timage, fn)(str(path)),
+                                          getattr(jimage, fn)(str(path)),
+                                          err_msg=fn)
+
+
+def test_jpeg_corrupt_data():
+    """Truncated and garbled JPEGs decode or raise a ValueError, never
+    read or write outside their buffers (an over-subscribed Huffman table
+    once indexed past the decoder's lookahead table)."""
+    rng = np.random.default_rng(5)
+    base = [_jpeg(_photo(33, 47, 2), subsampling=2, progressive=prog,
+                  restart_marker_blocks=2) for prog in (False, True)]
+    for i in range(600):
+        data = bytearray(base[i % 2])
+        if i % 3 == 0:
+            data = data[:rng.integers(2, len(data))]
+        else:
+            for _ in range(rng.integers(1, 8)):
+                data[rng.integers(2, len(data))] = rng.integers(0, 256)
+        try:
+            img = timage.decode_jpeg(bytes(data))
+        except ValueError:
+            continue
+        assert img.dtype == np.uint8 and img.shape[-1] == 3
+    dht = base[0].index(b"\xff\xc4")
+    bad = bytearray(base[0])
+    bad[dht + 5:dht + 21] = bytes([3] + [0] * 15)  # 3 codes of length 1
+    with pytest.raises(ValueError, match="Huffman"):
+        timage.decode_jpeg(bytes(bad))
+
+
+def test_jpeg_speed():
+    """A 2048^2 4:2:0 baseline JPEG decodes in under 2 s (the decoder
+    built), as a 2K texture of a loaded asset needs."""
+    data = _jpeg(_photo(2048, 2048, 1), subsampling=2, quality=90)
+    native.load("jpeg")                  # built, if it was not yet
+    t0 = time.perf_counter()
+    img = timage.decode_jpeg(data)
+    assert time.perf_counter() - t0 < 2.0
+    assert img.shape == (2048, 2048, 3)
+
+
 def test_unsupported_images_raise(tmp_path):
-    """JPEG and interlaced PNG raise a ValueError naming the format."""
-    jpg = tmp_path / "x.jpg"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg, format="JPEG")
-    with pytest.raises(ValueError, match="JPEG"):
+    """Formats the port does not decode raise a ValueError naming them:
+    arithmetic-coded and 12-bit JPEG (frame headers), a CMYK JPEG written
+    by PIL, and a GIF."""
+    def frame(sof, precision):
+        body = bytes([precision, 0, 4, 0, 4, 1, 1, 0x11, 0])
+        return (b"\xff\xd8" + sof + struct.pack(">H", len(body) + 2) + body
+                + b"\xff\xd9")
+    with pytest.raises(ValueError, match="arithmetic"):
+        timage.decode_jpeg(frame(b"\xff\xc9", 8))
+    with pytest.raises(ValueError, match="12-bit"):
+        timage.decode_jpeg(frame(b"\xff\xc1", 12))
+    jpg = tmp_path / "cmyk.jpg"
+    Image.new("CMYK", (4, 4), (10, 20, 30, 40)).save(jpg, format="JPEG")
+    with pytest.raises(ValueError, match="CMYK"):
         timage.load_png(str(jpg))
-    s = np.zeros((4, 4, 3), int)
-    with pytest.raises(ValueError, match="interlaced"):
-        timage.decode_png(encode_png(s, 2, 8, interlace=1))
     with pytest.raises(ValueError, match="not a PNG"):
         timage.decode_png(b"GIF89a")
+    with pytest.raises(ValueError, match="not a PNG"):
+        timage.load_png(io.BytesIO(b"GIF89a"))
 
 
 def _rgbe(rgb):

@@ -31,10 +31,8 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def scenes():
-    sb, _, _, _ = example_scene("lumo_tpu", "medium", 16)
-    js = sb.build()
-    sb_t, _, _, _ = example_scene("lumo_tpu_torch", "medium", 16)
-    ts = sb_t.build(device="cpu")
+    js = example_scene("lumo_tpu", "medium", 16)[0]
+    ts = example_scene("lumo_tpu_torch", "medium", 16)[0]
     return js, ts
 
 
