@@ -61,7 +61,14 @@ on the card, and drives the port's paths over ``bench.py``'s scenes at
   device; one NCCL rank runs ``mesh.shard_step`` against the one-device
   step; NCCL's refusal of two ranks on one card is checked.  The two
   ranks start before ``[parity-kd]`` and set up while the phases before
-  ``[devices]`` run, then wait for its go file.
+  ``[devices]`` run, then wait for its go file;
+- the driver's entry points (``[graft]``, ``lumo_tpu_torch.graft_entry``):
+  the forward ``entry()`` step, ``dryrun_multichip(2)`` (two gloo ranks
+  sharing the card take the rich scene's sharded training step through
+  K2, its ``pmean``'d material gradients and SGD update, a ``psum``'d
+  BDPT film and the scaling protocol), held against the same blocks on
+  one device; the training step once more at 256^2; and the
+  spectral-uplift table fitted on the card against the shipped one.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -2013,39 +2020,6 @@ DEV_LABEL = "two processes on one card; not a multi-card scaling figure"
 DEV_GO_TIMEOUT_S = 1200  # the longest a rank waits for its go file
 
 
-def start_ranks(fn, world, args):
-    """Start ``fn(rank, world, *args)`` in ``world`` processes with the
-    spawn method (this process holds a CUDA context, so never fork); the
-    context to :func:`join_ranks` or :func:`stop_ranks`."""
-    import torch.multiprocessing as mp
-    return mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
-                              join=False, start_method="spawn")
-
-
-def join_ranks(ctx, timeout):
-    """Wait for every rank: a rank that raises stops the others and raises
-    here, and ranks still running after ``timeout`` seconds are stopped
-    and raise."""
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-        if time.monotonic() > deadline:
-            stop_ranks(ctx)
-            raise TimeoutError(f"ranks still running after {timeout} s")
-
-
-def stop_ranks(ctx):
-    for p in ctx.processes:
-        if p.is_alive():
-            p.terminate()
-    for p in ctx.processes:
-        p.join(timeout=10)
-
-
-def spawn_ranks(fn, world, args, timeout):
-    """:func:`start_ranks`, then :func:`join_ranks`."""
-    join_ranks(start_ranks(fn, world, args), timeout)
-
-
 def wait_for_go(go_file, parent):
     """Block until ``go_file`` exists; exit when the process ``parent``
     that started this one is gone, or after DEV_GO_TIMEOUT_S."""
@@ -2203,13 +2177,14 @@ def start_devices_ranks(dev, res):
     for the go file that :func:`phase_devices` writes.  Returns what
     phase_devices and :func:`stop_devices_ranks` take."""
     import tempfile
+    from lumo_tpu_torch.parallel import distributed
     tmp = tempfile.TemporaryDirectory()
     rank_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
                 else str(dev))
     go = os.path.join(tmp.name, "go")
-    ctx = start_ranks(devices_rank, DEV_WORLD,
-                      (f"file://{tmp.name}/gloo", tmp.name, rank_dev, res,
-                       go, os.getpid()))
+    ctx = distributed.start_ranks(devices_rank, DEV_WORLD,
+                                  (f"file://{tmp.name}/gloo", tmp.name,
+                                   rank_dev, res, go, os.getpid()))
     log("devices", ranks_started=DEV_WORLD, backend="gloo",
         note=repr("setting up while the earlier phases run"))
     return {"ctx": ctx, "tmp": tmp, "go": go}
@@ -2218,8 +2193,9 @@ def start_devices_ranks(dev, res):
 def stop_devices_ranks(ranks):
     """Stop ranks still running (a phase before ``[devices]`` failed) and
     remove their directory."""
+    from lumo_tpu_torch.parallel import distributed
     if ranks is not None:
-        stop_ranks(ranks["ctx"])
+        distributed.stop_ranks(ranks["ctx"])
         ranks["tmp"].cleanup()
 
 
@@ -2311,7 +2287,7 @@ def phase_devices(scene, camera, dev, refs, started):
     t0 = time.perf_counter()
     with open(started["go"], "w") as f:
         f.write("go")
-    join_ranks(started["ctx"], DEV_TIMEOUT_S)
+    distributed.join_ranks(started["ctx"], DEV_TIMEOUT_S)
     wait_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(DEV_WORLD)]
@@ -2595,6 +2571,185 @@ def phase_examples(dev):
     log("examples", phase_s=round(time.perf_counter() - t_phase, 1))
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the driver's entry points (``lumo_tpu_torch.graft_entry``) and
+# the spectral-uplift table fit
+
+GRAFT_WORLD = 2         # gloo ranks sharing the card
+GRAFT_RES = 8           # the JAX package's dryrun resolution
+GRAFT_TRAIN_RES = 256   # the training step once more: 65,536 rays a step
+FIT_RES = 64            # the shipped table's nodes an axis
+FIT_RGB_ATOL = 1e-6     # the fitted table against the shipped one
+
+
+def _k2_both(launches):
+    return launches["closest"] > 0 and launches["any"] > 0
+
+
+def _fit_rgb(coeffs):
+    """The linear sRGB each coefficient row reproduces, in float64."""
+    from lumo_tpu_torch.color import uplift
+    A, xs = uplift._fit_basis()
+    poly = coeffs.astype(np.float64) @ np.stack([xs * xs, xs,
+                                                  np.ones_like(xs)])
+    return (0.5 + poly / (2.0 * np.sqrt(1.0 + poly * poly))) @ A.T
+
+
+def _graft_check(case, pairs, rtol, atol):
+    """The ranks' tensors against one device's, (got, want) pairs on the
+    host: one line with the elements, those outside the tolerance and the
+    largest difference; raises if any lies outside."""
+    got = np.concatenate([g.numpy().ravel() for g, _ in pairs])
+    want = np.concatenate([w.numpy().ravel() for _, w in pairs])
+    _devices_check("graft", case, got, want, rtol, atol)
+
+
+def phase_graft(dev):
+    """Slice 11: the driver's entry points.
+
+    (a) ``graft_entry.entry()`` on the card: radiance (64, 4), finite.
+    (b) ``graft_entry.dryrun_multichip(2)`` at the JAX dryrun's 8^2: two
+    gloo ranks sharing the card (``rank_layout``), each building the rich
+    scene (1,282 triangles through K2, a disk light), taking its block of
+    the training step (render, loss, gradients of the float material
+    tables, ``pmean``, SGD), the ``psum``'d BDPT film and the scaling
+    protocol.  Held: each rank launched K2 closest and any in the
+    forward and none in the backward; the ranks agree bit for bit (checked
+    by the dryrun); their gradients and update are within the
+    ``[devices]`` tolerances (rtol 2e-4, atol 1e-6) of the mean of the
+    same two blocks taken on one device here, and their film within rtol
+    1e-4, atol 1e-5 of one device's.  (c) The training step once more on
+    one device at 256^2 (65,536 rays): fwd+bwd wall, K2 launches (counts
+    set to 0 just before, read just after: closest and any in the
+    forward, none in the backward), peak ``max_memory_allocated`` and
+    the device's idle share over one more step.
+    (d) ``uplift.fit_table(64)`` on the card against the shipped
+    ``uplift_srgb_64.npz``: the largest coefficient difference, the
+    largest difference of the RGB each entry reproduces (at most
+    FIT_RGB_ATOL), the entries whose coefficients differ by more than
+    1e-5 of their largest (at most 1%), and the seconds."""
+    from lumo_tpu_torch import graft_entry as ge
+    from lumo_tpu_torch.color import uplift
+    from lumo_tpu_torch.parallel import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    log("graft", card=repr(card_line()))
+
+    # (a) the forward entry step
+    fn, args = ge.entry(dev)
+    _reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log("graft", case="entry", shape=tuple(out.shape),
+        finite=bool(torch.isfinite(out).all()), radiance_sum=float(out.sum()),
+        launches=json.dumps(_launch_counts()).replace(" ", ""))
+    if out.shape != (ge.ENTRY_RAYS, 4) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("graft: entry() gave a wrong shape or "
+                             "non-finite radiance")
+
+    # (b) the dryrun over two ranks sharing the card
+    t0 = time.perf_counter()
+    dry = ge.dryrun_multichip(GRAFT_WORLD, device=dev, res=GRAFT_RES)
+    dry_s = time.perf_counter() - t0
+    log("graft", case="dryrun", ranks=GRAFT_WORLD, backend=dry["backend"],
+        devices=json.dumps(dry["devices"]).replace(" ", ""),
+        wall_s=dry_s, loss=dry["loss"],
+        params_l1=dry["params_l1"], bdpt_film_l1=dry["bdpt_film_l1"],
+        scaling_rays_per_s_per_device=json.dumps(dry["scaling"]).replace(
+            " ", ""), label=repr(DEV_LABEL))
+    for out in dry["ranks"]:
+        log("graft", case="dryrun", rank=out["rank"], device=out["device"],
+            tris=out["n_tris"],
+            k2_launches=json.dumps(out["launches"]).replace(" ", ""))
+        if (not _k2_both(out["launches"]["fwd"])
+                or sum(out["launches"]["bwd"].values()) != 0):
+            raise AssertionError(f"graft: rank {out['rank']}'s K2 launches "
+                                 f"{out['launches']}: want closest and any "
+                                 f"in the forward, none in the backward")
+    scene, camera = ge.rich_scene_camera(GRAFT_RES, dev)
+    mats = ge.float_tables(scene)
+    n_pix = GRAFT_RES * GRAFT_RES
+    blocks = []
+    for rank in range(GRAFT_WORLD):
+        ids = torch.arange(rank * n_pix // GRAFT_WORLD,
+                           (rank + 1) * n_pix // GRAFT_WORLD, device=dev)
+        lam = ge.train_wavelengths(rank, ids.shape[0], dev)
+        blocks.append(ge.loss_and_grads(scene, camera, mats, ids, lam, ids))
+    got = dry["ranks"][0]
+    want = {k: sum(b[1][k] for b in blocks).cpu() / GRAFT_WORLD for k in mats}
+    _graft_check("grads", [(got["grads"][k], want[k]) for k in mats],
+                 2e-4, 1e-6)
+    _graft_check("sgd-update", [(got["new_mats"][k],
+                                 mats[k].cpu() - ge.LR * want[k])
+                                for k in mats], 2e-4, 1e-6)
+    one = ge.bdpt_film(mesh_mod.make_mesh(1, dev), scene, camera)
+    _graft_check("bdpt-film", [(a, b.cpu()) for a, b in zip(got["film"], one)],
+                 1e-4, 1e-5)
+
+    # (c) the training step at 256^2 on one device
+    scene, camera = ge.rich_scene_camera(GRAFT_TRAIN_RES, dev)
+    mats = ge.float_tables(scene)
+    mesh = mesh_mod.make_mesh(1, dev)
+    ge.train_step(mesh, scene, camera, mats)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launches = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss, new, grads = ge.train_step(mesh, scene, camera, mats,
+                                     launches=launches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = _launch_counts()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    lanes = GRAFT_TRAIN_RES * GRAFT_TRAIN_RES
+    log("graft", case="train-step", res=f"{GRAFT_TRAIN_RES}x{GRAFT_TRAIN_RES}",
+        lanes=lanes, depth=ge.LOSS_DEPTH, fwd_bwd_wall_s=wall,
+        lanes_per_s=lanes / wall, loss=float(loss),
+        params_l1=ge.l1(new.values()), grads_finite=finite,
+        k2_launches=json.dumps(launches).replace(" ", ""),
+        launches=json.dumps(counted).replace(" ", ""),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        allocated_before_bytes=base)
+    if (not finite or not _k2_both(launches["fwd"])
+            or sum(launches["bwd"].values()) != 0
+            or counted["k2_closest"] != launches["fwd"]["closest"]):
+        raise AssertionError(f"graft: the 256^2 training step: finite "
+                             f"{finite}, K2 launches {launches}")
+
+    def step():
+        t = time.perf_counter()
+        ge.train_step(mesh, scene, camera, mats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    idle_share("graft", step)
+    del scene, camera, mats, new, grads
+
+    # (d) the uplift table fitted on the card against the shipped one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = uplift.fit_table(FIT_RES, dev)
+    fit_s = time.perf_counter() - t0
+    with np.load(uplift._DATA) as d:
+        shipped = {k: d[k] for k in ("coeffs", "scale")}
+    diff = np.abs(fit["coeffs"] - shipped["coeffs"])
+    scale = np.abs(shipped["coeffs"]).max(axis=-1, keepdims=True)
+    differ = int((diff > 1e-5 * scale).any(axis=-1).sum())
+    rgb_err = float(np.abs(_fit_rgb(fit["coeffs"])
+                           - _fit_rgb(shipped["coeffs"])).max())
+    log("graft", case="uplift-fit", res=FIT_RES, seconds=fit_s,
+        entries=diff.size // 3, max_coeff_abs_diff=float(diff.max()),
+        entries_coeffs_differ=differ, max_rgb_abs_diff=rgb_err,
+        rgb_atol=FIT_RGB_ATOL,
+        scale_equal=bool(np.array_equal(fit["scale"], shipped["scale"])))
+    if (rgb_err > FIT_RGB_ATOL or differ > diff.size // 3 // 100
+            or not np.allclose(fit["scale"], shipped["scale"])):
+        raise AssertionError("graft: the table fitted on the card and the "
+                             "shipped table disagree")
+    log("graft", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def run_phases(dev, started):
     """Every phase on ``dev``, then the kernels' line; ``started["ranks"]``
     gets ``[devices]``' ranks when they start."""
@@ -2669,6 +2824,7 @@ def run_phases(dev, started):
     phase_io(camera, dev)
     phase_examples(dev)
     phase_quality(dev)
+    phase_graft(dev)
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",

@@ -34,6 +34,10 @@ def sample(u):
     return sample_one(v)
 
 
+def sample_uniform_one(u):
+    return LAMBDA_MIN + u * (LAMBDA_MAX - LAMBDA_MIN)
+
+
 def pdf_one(lam):
     """(reference ``wavelength.rs:60-66``)."""
     inside = (lam >= LAMBDA_MIN) & (lam <= LAMBDA_MAX)
@@ -59,3 +63,7 @@ def terminate(lam, do):
     keep = torch.cat([torch.ones_like(lam[..., :1], dtype=torch.bool),
                       (~do[..., None]).expand(lam[..., 1:].shape)], dim=-1)
     return torch.where(keep, lam, 0.0)
+
+
+def leading(lam):
+    return lam[..., 0]

@@ -174,6 +174,18 @@ def sphere_detail(o, d, t, center, radius):
     return {"p": p, "ng": ng, "ns": ng, "uv": uv, "err": err}
 
 
+def aabb_t(o, inv_d, lo, hi, t_max):
+    """Slab test.  o, inv_d (N, 3); lo, hi (..., 3) broadcastable ->
+    (t_start, t_end) with conservative scaling (reference
+    ``aabb.rs:32-44``)."""
+    t0 = (lo - o[..., None, :]) * inv_d[..., None, :]
+    t1 = (hi - o[..., None, :]) * inv_d[..., None, :]
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = (torch.amin(torch.maximum(t0, t1), dim=-1)
+             * (1.0 + 2.0 * gamma_bound(3)))
+    return t_near, t_far
+
+
 def offset_ray_origin(p, err, ng, wi):
     """Offset a secondary-ray origin out of the surface by the accumulated
     fp error bound, then one ulp further (reference ``hit.rs:86-110``)."""

@@ -60,6 +60,35 @@ def cos_theta(w):
     return w[..., 2]
 
 
+def cos2_theta(w):
+    return w[..., 2] ** 2
+
+
+def sin2_theta(w):
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return safe_sqrt(sin2_theta(w))
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / torch.clamp(cos2_theta(w),
+                                       min=torch.finfo(w.dtype).tiny)
+
+
+def cos_phi(w):
+    s = sin_theta(w)
+    return torch.where(s == 0.0, 1.0, torch.clamp(
+        w[..., 0] / torch.where(s == 0.0, 1.0, s), -1.0, 1.0))
+
+
+def sin_phi(w):
+    s = sin_theta(w)
+    return torch.where(s == 0.0, 0.0, torch.clamp(
+        w[..., 1] / torch.where(s == 0.0, 1.0, s), -1.0, 1.0))
+
+
 def same_hemisphere(a, b):
     return cos_theta(a) * cos_theta(b) > 0.0
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -85,6 +86,9 @@ def initialize(coordinator: str | None = None,
         return
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"NCCL needs a card for each rank; this rank's "
+                         f"device is {dev}: use gloo")
     if coordinator is None:
         init = "env://"
     elif "://" in coordinator:
@@ -119,6 +123,44 @@ def shutdown():
     if dist.is_initialized():
         dist.destroy_process_group()
     _device = None
+
+
+def start_ranks(fn, world, args):
+    """Start ``fn(rank, world, *args)`` in ``world`` processes with the
+    spawn method (a fresh interpreter: never fork a process that may hold
+    a CUDA context); the context to :func:`join_ranks`, or to
+    :func:`stop_ranks` to abandon them."""
+    import torch.multiprocessing as mp
+    return mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def join_ranks(ctx, timeout):
+    """Wait for every rank of ``ctx``: a rank that raises stops the others
+    and raises here with its traceback, as do ranks still running after
+    ``timeout`` seconds; no rank outlives the call."""
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after {timeout} s")
+    finally:
+        stop_ranks(ctx)
+
+
+def stop_ranks(ctx):
+    """Terminate the ranks of ``ctx`` still running and reap them all."""
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
+    for p in ctx.processes:
+        p.join(timeout=10)
+
+
+def spawn_ranks(fn, world, args, timeout):
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes and
+    wait for all (:func:`start_ranks`, then :func:`join_ranks`)."""
+    join_ranks(start_ranks(fn, world, args), timeout)
 
 
 def is_multi_process() -> bool:

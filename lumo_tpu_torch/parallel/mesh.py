@@ -44,10 +44,10 @@ def make_mesh(n_devices=None, device=None) -> Mesh:
     the whole world (one rank without a group); 1 means this rank alone,
     with no collective, as JAX's ``make_mesh(1)`` takes the first device
     only; any other count must equal the world size (one rank a device;
-    no subgroups).  The device of a mesh over the group is the one
-    ``distributed.initialize`` chose, or ``device`` where the group was
-    joined another way (torchrun with ``init_process_group``); a one-rank
-    mesh's is ``device``."""
+    the first n ranks of a mesh are :func:`sub_mesh`).  The device of a
+    mesh over the group is the one ``distributed.initialize`` chose, or
+    ``device`` where the group was joined another way (torchrun with
+    ``init_process_group``); a one-rank mesh's is ``device``."""
     n = None if n_devices is None else int(n_devices)
     if n == 1 or (n is None and not dist.is_initialized()):
         return Mesh(None, 1, 0, None if device is None
@@ -65,6 +65,23 @@ def make_mesh(n_devices=None, device=None) -> Mesh:
             f"lumo_tpu_torch.parallel.distributed.initialize in each")
     return Mesh(dist.group.WORLD, world, dist.get_rank(),
                 distributed.device(device))
+
+
+def sub_mesh(mesh: Mesh, n: int) -> Mesh | None:
+    """The mesh over the first ``n`` ranks of ``mesh`` (as JAX's
+    ``make_mesh(n)`` takes the first n devices), on the ranks inside it;
+    None on the others.  1 is rank 0 alone, with no collective; ``n``
+    below the mesh size is a new group, which every rank of the process
+    group must call this to create."""
+    n = int(n)
+    if not 1 <= n <= mesh.size:
+        raise ValueError(f"{n} ranks of a mesh of {mesh.size}")
+    if n == mesh.size:
+        return mesh
+    if n == 1:
+        return Mesh(None, 1, 0, mesh.device) if mesh.rank == 0 else None
+    group = dist.new_group(dist.get_process_group_ranks(mesh.group)[:n])
+    return Mesh(group, n, mesh.rank, mesh.device) if mesh.rank < n else None
 
 
 def same_on_all(key: bytes | None, mesh: Mesh) -> bool:

@@ -45,3 +45,11 @@ def square_to_sphere(u):
     r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * PI * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_hemisphere(u):
+    """Uniform direction on the z+ hemisphere."""
+    z = u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

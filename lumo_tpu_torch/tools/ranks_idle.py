@@ -56,6 +56,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from lumo_tpu_torch.camera import build_camera
+    from lumo_tpu_torch.parallel import distributed
     dev = torch.device("cuda")
     cs.phase_card()
     camera = build_camera(resolution=(cs.RES, cs.RES), device=dev)
@@ -69,7 +70,7 @@ def main(argv=None):
             if turn == "none" and started is not None:
                 with open(started["go"], "w") as f:
                     f.write("go")
-                cs.join_ranks(started["ctx"], cs.DEV_TIMEOUT_S)
+                distributed.join_ranks(started["ctx"], cs.DEV_TIMEOUT_S)
                 cs.stop_devices_ranks(started)
                 started = None
             walls = frames(cs, scene, camera, args.frames)

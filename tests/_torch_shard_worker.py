@@ -35,11 +35,10 @@ SPAWN_TIMEOUT_S = 240
 
 def spawn(fn, world, *args):
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes and
-    wait for all (``chip_smoke.spawn_ranks``: a rank that raises stops the
+    wait for all (``distributed.spawn_ranks``: a rank that raises stops the
     others and raises here; ranks still running after SPAWN_TIMEOUT_S
     seconds are stopped)."""
-    import chip_smoke
-    chip_smoke.spawn_ranks(fn, world, args, SPAWN_TIMEOUT_S)
+    distributed.spawn_ranks(fn, world, args, SPAWN_TIMEOUT_S)
 
 
 def cornell(dev):

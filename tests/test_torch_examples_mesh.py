@@ -1,9 +1,11 @@
 """Slice 5 as a whole, the example scene with a tree of its own:
 ``dragon`` (rough dispersive glass on a 20,480-triangle mesh in the empty
-box) through the plain version of K2 and of K3, as the JAX program and
-the port's program build it, rendered through both packages'
-``Renderer`` as in ``test_torch_examples.py`` (16x16, one sample per pixel, square
-filter; the JAX package jit-compiled), by that file's rule: 99% of the
+box) through the plain version of K2 and of K3, and ``bunny`` (the one
+rough conductor of the programs, ``Material.metal(..., 0.1, 2.5, 3.0)``)
+through K2's, as the JAX program and the port's program build it,
+rendered through both packages' ``Renderer`` as in
+``test_torch_examples.py`` (16x16, one sample per pixel, square filter;
+the JAX package jit-compiled), by that file's rule: 99% of the
 non-flipped pixels within rtol 1e-3, atol 1e-6, the mean within 1e-4
 relative, at most 1% flips.  The textured mesh scenes are in
 ``test_torch_examples_tex.py``.
@@ -33,7 +35,8 @@ def _one_thread():
 
 
 @pytest.mark.parametrize("name,accel,min_close", [
-    ("dragon", "bvh", 0.99), ("dragon", "kdtree", 0.99)])
+    ("dragon", "bvh", 0.99), ("dragon", "kdtree", 0.99),
+    ("bunny", "bvh", 0.99)])
 def test_example_matches_jax(name, accel, min_close):
     js, ts, img_j, img_t = render_example(name, accel, RES)
     tree = ts.kdtree if accel == "kdtree" else ts.bvh
