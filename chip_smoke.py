@@ -69,6 +69,13 @@ on the card, and drives the port's paths over ``bench.py``'s scenes at
   BDPT film and the scaling protocol), held against the same blocks on
   one device; the training step once more at 256^2; and the
   spectral-uplift table fitted on the card against the shipped one.
+- the benchmark entry (``[bench]``, ``python -m lumo_tpu_torch.bench
+  --spp 2`` in a subprocess, as a user runs it): the Cornell headline's
+  fwd+bwd, forward and stream, the bvh, bdpt and quality subs at
+  ``bench.py``'s sizes but 2 samples per pixel, and the smoke gate whole
+  (K2 on the 327,692- and 5,242,880-triangle blobs and K3 on the kd-built
+  one, each query held against its plain walk); bench.py's keys, no
+  failed sub, and K2 (K3) launched in every sub that uses it.
 
 Each path is checked against a kernel-free run on a small image, the two
 kernels are checked against each other on the same rays, and the kernels'
@@ -92,6 +99,11 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+# bench.py's scenes, rays and losses, shared with the port's benchmark
+# entry (outside a checkout this import fails and the script exits 1)
+from lumo_tpu_torch.bench import (bench_scene, card_line, gnorm, grad_rays,
+                                  loss_r2, loss_rgb, sample_rays)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -139,13 +151,6 @@ def log(phase, **kv):
           flush=True)
 
 
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def timed_ms(fn, reps):
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -155,39 +160,6 @@ def timed_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def bench_scene(dev, accel="bvh"):
-    """bench.py::bench_bvh_scene's scene, built with the port's builder."""
-    from lumo_tpu_torch.scene import shapes
-    from lumo_tpu_torch.scene.cornell import empty_box
-    from lumo_tpu_torch.scene.instance import Mesh
-    from lumo_tpu_torch.scene.materials import Material
-    sb = empty_box((0.95, 0.95, 0.95), Material.diffuse((0.9, 0.1, 0.1)),
-                   Material.diffuse((0.1, 0.9, 0.1)))
-    v, f, vn = shapes.blob(subdiv=7, seed=11, amp=0.22)
-    (Mesh(v, f, normals=vn).to_unit_size().to_origin().set_y(-0.799)
-     .translate(0.0, 0.0, -1.5)
-     .add_to(sb, Material.metal((0.9, 0.7, 0.1), 0.1, 2.5, 3.0)))
-    return sb.build(device=dev, accel=accel)
-
-
-def sample_rays(camera, res, idx):
-    """Jittered camera rays of the sample ids ``idx`` (pixel ``idx % n``,
-    sample ``idx // n``), keyed per (pixel, sample), as bench.py:234-245
-    generates them: (o, d, lam, ray_key, pixel)."""
-    from lumo_tpu_torch.color import wavelength
-    from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
-    n = res * res
-    p, s = idx % n, idx // n
-    gx, gy = (p % res).float(), (p // res).float()
-    jx = _randfloat(p, s ^ 0x51633E2D)
-    jy = _randfloat(p, s ^ 0x68BC21EB)
-    raster = torch.stack([gx + jx, gy + jy], -1)
-    o, d = camera.generate_ray(raster, torch.full_like(raster, 0.5))
-    lam = wavelength.sample(_randfloat(p, s ^ 0x02E5BE93))
-    rk = _hash_u32(p ^ _hash_u32(s ^ 0x9E3779B9))
-    return o, d, lam, rk, p
 
 
 def camera_wavefront(camera, res, spp, dev):
@@ -843,32 +815,6 @@ KD_STREAM_FRAMES = 1   # 3 until slice 6
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
 
 
-def grad_rays(camera, res, sp, dev):
-    """bench.py:285-291's rays of sample ``sp`` at every pixel: jittered
-    raster, hero wavelengths, ray_key = hash(pixel ^ hash(sp))."""
-    from lumo_tpu_torch.color import wavelength
-    from lumo_tpu_torch.sampling.samplers import _hash_u32, _randfloat
-    pix = torch.arange(res * res, dtype=torch.int64, device=dev)
-    raster = torch.stack([(pix % res).float() + _randfloat(pix, sp ^ 0x51633E2D),
-                          (pix // res).float() + _randfloat(pix, sp ^ 0x68BC21EB)],
-                         -1)
-    o, d = camera.generate_ray(raster, torch.full_like(raster, 0.5))
-    lam = wavelength.sample(_randfloat(pix, sp ^ 0x02E5BE93))
-    return o, d, lam, _hash_u32(pix ^ _hash_u32(torch.full_like(pix, sp)))
-
-
-def loss_rgb(wbm):
-    """bench.py:85-87's loss: mean(rgb^2) through the film's colour
-    matrix."""
-    from lumo_tpu_torch import film
-    return lambda r, lam, w: (film.spectral_to_rgb(r, lam, wbm) ** 2).mean()
-
-
-def loss_r2(r, lam, w):
-    """bench.py:297's loss, mean(r^2), over the lanes of weight ``w``."""
-    return (r * r).mean() if w is None else (w[:, None] * r * r).mean()
-
-
 def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
               checkpoint=False, weight=None, kernels=None):
     """One fwd(+bwd) over the samples ``samples`` (each a whole image at
@@ -926,13 +872,6 @@ def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
 def grads_finite(grads):
     return all(bool(torch.isfinite(g).all()) for g in grads.values()
                if g is not None)
-
-
-def gnorm(grads, spp):
-    """bench.py's gradient norm: sum of |g| over the material leaves, per
-    sample."""
-    return sum(float(g.abs().sum()) for k, g in grads.items()
-               if g is not None and k != "c2w_t") / spp
 
 
 def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
@@ -2750,6 +2689,84 @@ def phase_graft(dev):
     log("graft", phase_s=round(time.perf_counter() - t_phase, 1))
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the benchmark entry (python -m lumo_tpu_torch.bench)
+
+BENCH_SPP = 2           # cut from bench.py's 64 spp for the script's time
+BENCH_TIMEOUT_S = 600   # the longest the entry may take at BENCH_SPP
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+
+
+def _bench_launches(extra):
+    """(name, query, launches) of every kernel query the entry's subs
+    report: K2 in bvh (stream, fwd+bwd), smoke and quality, K3 in smoke's
+    kd scene."""
+    bvh, smoke = extra["bvh"]["k2_launches"], extra["smoke"]
+    rows = [(f"bvh-{part}", q, bvh[part][q]) for part in ("stream", "fwd_bwd")
+            for q in ("closest", "any")]
+    rows += [("smoke-bvh", q, smoke["bvh"]["launches"][q])
+             for q in ("closest", "any")]
+    rows += [("smoke-bvh_large", "closest",
+              smoke["bvh_large"]["launches"]["closest"]),
+             ("smoke-kd", "closest", smoke["kd"]["launches"]["closest"])]
+    rows += [("quality", q, extra["quality"]["k2_launches"][q])
+             for q in ("closest", "any")]
+    return rows
+
+
+def phase_bench():
+    """``python -m lumo_tpu_torch.bench --spp 2`` as a user runs it, in a
+    subprocess from the checkout's root: every sub at bench.py's sizes but
+    for the samples per pixel, the smoke gate whole (its 5,242,880-triangle
+    K2 query and every query's check against the plain walk).  Checks exit
+    code 0, bench.py's keys in the last line, no sub with an error, smoke
+    ok, and K2 (K3) launches in every sub that uses them."""
+    from lumo_tpu_torch import bench
+    t_phase = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "lumo_tpu_torch.bench",
+                        "--spp", str(BENCH_SPP)], cwd=ROOT,
+                       capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    if p.returncode != 0:
+        raise AssertionError(f"bench: exit code {p.returncode}: "
+                             + p.stderr[-2000:] + p.stdout[-2000:])
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    if set(line) != BENCH_KEYS or line["metric"] != bench.METRIC:
+        raise AssertionError(f"bench: not bench.py's schema: {sorted(line)}")
+    extra = line["extra"]
+    if bench.failed(line):
+        raise AssertionError(f"bench: failed subs {bench.failed(line)}")
+    smoke = extra["smoke"]
+    log("bench", cmd=repr(f"python -m lumo_tpu_torch.bench --spp {BENCH_SPP}"),
+        card=repr(extra["card"]), res=extra["res"], spp=extra["spp"],
+        value=line["value"], vs_baseline=line["vs_baseline"],
+        fwd_only=extra["fwd_only"]["rays_per_s"],
+        fwd_only_mode=extra["fwd_only"]["mode"],
+        peak_bytes=extra["peak_bytes"],
+        bvh_fwd=extra["bvh"]["bvh_scene_fwd_rays_per_sec"],
+        bvh_fwd_bwd=extra["bvh"]["bvh_scene_fwd_bwd_rays_per_sec"],
+        bdpt=extra["bdpt"]["bdpt_cornell_rays_per_sec"],
+        bdpt_peak_bytes=extra["bdpt"]["peak_bytes"],
+        sub_s=json.dumps({k: round(extra[k]["sub_s"], 1)
+                          for k in bench.SUBS}).replace(" ", ""))
+    for name in ("bvh", "bvh_large", "kd"):
+        rec = smoke[name]
+        log("bench", case=f"smoke-{name}", tris=rec["tris"], rays=rec["rays"],
+            hits=rec["hits"], closest_s=rec["closest_s"],
+            blocks=json.dumps(rec["blocks"]).replace(" ", ""),
+            checked=rec["vs_plain_walk"]["rays"],
+            checked_hits=rec["vs_plain_walk"]["hits"],
+            vs_plain_walk="prims equal, t bit-equal",
+            total_s=rec["total_s"])
+    rows = _bench_launches(extra)
+    log("bench", launches=json.dumps(
+        {f"{n}-{q}": k for n, q, k in rows}).replace(" ", ""))
+    if min(k for _, _, k in rows) <= 0:
+        raise AssertionError(f"bench: a kernel was not launched: {rows}")
+    log("bench", wall_s=extra["wall_s"],
+        phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def run_phases(dev, started):
     """Every phase on ``dev``, then the kernels' line; ``started["ranks"]``
     gets ``[devices]``' ranks when they start."""
@@ -2825,6 +2842,7 @@ def run_phases(dev, started):
     phase_examples(dev)
     phase_quality(dev)
     phase_graft(dev)
+    phase_bench()
     sync = phase_sync(dev)
 
     bvh_src = ("lumo_tpu_torch/csrc/bvh_traverse.cu",
@@ -2858,15 +2876,9 @@ def run_phases(dev, started):
     return 0
 
 
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(ROOT, "lumo_tpu_torch")):
-        print("chip_smoke: run from the root of a lumo_tpu checkout "
-              "(lumo_tpu_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -578,3 +578,54 @@ def test_example_program_runs_on_the_card(card, tmp_path):
     assert res.returncode == 0, res.stderr
     assert "saved" in res.stdout
     assert image.decode_png(out.read_bytes()).shape == (32, 32, 3)
+
+
+def test_smoke_gate_on_the_card(card):
+    """``tools/smoke.py`` at subdiv 3 (1,292 and 20,492 triangles): ok,
+    K2 launched on both BVH scenes and K3 on the kd one, each closest-hit
+    query equal to its plain walk on the checked rays (prims equal, t
+    bit-equal)."""
+    from lumo_tpu_torch.tools import smoke
+    out = smoke.run(subdiv=3, device=card)
+    assert out["ok"], out
+    assert out["backend"] == torch.cuda.get_device_name(card)
+    # one closest query a scene, and the fwd+bwd's two bounces of K2
+    # closest and any on the first
+    assert out["bvh"]["launches"] == {"closest": 3, "any": 3}
+    for name in ("bvh", "bvh_large", "kd"):
+        rec = out[name]
+        assert rec["launches"]["closest"] == (3 if name == "bvh" else 1)
+        assert rec["vs_plain_walk"]["t"] == "bit-equal"
+        assert rec["vs_plain_walk"]["hits"] > 0
+        assert rec["hits"] > rec["rays"] // 2
+        assert len(rec["blocks"]) == 2
+    assert out["bvh_large"]["tris"] > out["bvh"]["tris"]
+
+
+def test_bench_entry_on_the_card(card):
+    """``python -m lumo_tpu_torch.bench --res 16 --spp 1 --subdiv 3`` in a
+    subprocess on the card: exit code 0, bench.py's keys in the last
+    line, no sub with an error, K2 launched in the bvh, smoke and quality
+    subs and K3 in the smoke gate's kd scene."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "lumo_tpu_torch.bench", "--res", "16",
+         "--spp", "1", "--subdiv", "3"], cwd=root, capture_output=True,
+        text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-2000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(line) == {"metric", "value", "unit", "vs_baseline", "extra"}
+    extra = line["extra"]
+    assert not [k for k in ("bvh", "bdpt", "smoke", "quality")
+                if "error" in extra[k]]
+    assert extra["smoke"]["ok"] and line["value"] > 0
+    assert min(extra["bvh"]["k2_launches"]["stream"].values()) > 0
+    assert min(extra["bvh"]["k2_launches"]["fwd_bwd"].values()) > 0
+    assert extra["quality"]["k2_launches"]["closest"] > 0
+    assert extra["smoke"]["bvh_large"]["launches"]["closest"] > 0
+    assert extra["smoke"]["kd"]["launches"]["closest"] > 0
+    assert extra["card"] != "cpu"
