@@ -69,6 +69,16 @@ on the card, and drives the port's paths over ``bench.py``'s scenes at
   BDPT film and the scaling protocol), held against the same blocks on
   one device; the training step once more at 256^2; and the
   spectral-uplift table fitted on the card against the shipped one.
+- forward-mode derivatives (``[jvp]``, ``torch.autograd.forward_ad``):
+  a tangent on the camera origin through the 327,692-triangle scene at
+  256^2 (65,536 lanes) at fixed depth and with Russian roulette, through
+  K2 and through K3 on the kd-built scene, each held on 2,048 of its
+  lanes against the plain route (K3's Russian-roulette frame against
+  K2's), with K2's fixed-depth loss tangent
+  against reverse mode's <grad L, v> and the peak bytes of both;
+  ``tools/diag_grad.py``'s float32 against float64 diagnosis
+  (``lumo_tpu_torch.tools.diag_grad``) at its own 64^2, 4 spp; and the
+  checkpointed bounce against the plain one under forward mode.
 - the benchmark entry (``[bench]``, ``python -m lumo_tpu_torch.bench
   --spp 2`` in a subprocess, as a user runs it): the Cornell headline's
   fwd+bwd, forward and stream, the bvh, bdpt and quality subs at
@@ -1644,7 +1654,8 @@ def _bdpt_depth(scene, configure):
 
 INST_FRAMES = 1        # timed frames per scene after a warm-up (2 until
                        # slice 8)
-INST_PARITY_RES = 32   # kernel- against plain-routed: the plain test is dense
+INST_PARITY_RES = 24   # kernel- against plain-routed: the plain test is dense
+                       # (32 until slice 13)
 INST_DEFAULT_SPP = 30  # one Renderer step at its 2,000,000-lane target
 IO_FRAMES = 1          # 2 until slice 9
 
@@ -2767,6 +2778,261 @@ def phase_bench():
         phase_s=round(time.perf_counter() - t_phase, 1))
 
 
+# ---------------------------------------------------------------------------
+# slice 13: forward-mode derivatives (torch.autograd.forward_ad)
+
+JVP_TANGENT = (0.3, -0.2, 0.5)  # the tangent of the camera origin c2w_t
+JVP_DEPTH = GRAD_DEPTH          # the fixed-depth renders' bounces
+JVP_CHECK = 2048       # lanes traced again on the plain route, half on blob
+JVP_RTOL, JVP_ATOL_REL = GRAD_RTOL, GRAD_ATOL_REL
+# jvp(v) against <grad L, v>: the loss's float32 sums over 65,536 lanes in
+# two orders
+JVP_IDENTITY_RTOL = 1e-3
+JVP_CKPT_RES = PARITY_RES
+DIAG = (64, 4)                 # tools/diag_grad.py's default res and spp
+# diag_grad's float32 net tangent against float64, over the sum of |terms|
+DIAG_REL_ERR_GROSS = 1e-3
+
+
+def jvp_render(scene, camera, depth, sub=None, res=None, checkpoint=False):
+    """One forward-mode render of sample 1 at res^2 (:func:`grad_rays`)
+    with the tangent JVP_TANGENT on ``c2w_t``: ``depth`` bounces, or
+    Russian roulette with ``depth`` None; ``sub`` (lane ids) traces those
+    lanes only.  No reverse graph is kept unless ``checkpoint`` (whose
+    checkpointed bounce runs only with grad enabled).  Returns the
+    radiance and its tangent, the loss mean(r^2) and its tangent, the
+    per-bounce prims, wall seconds, peak bytes above those allocated
+    before, and the K2/K3 launches of the render."""
+    import dataclasses
+
+    from torch.autograd import forward_ad
+
+    from lumo_tpu_torch.integrators import path_trace
+    dev, res = scene.device, res or RES
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(checkpoint), forward_ad.dual_level():
+        cam = dataclasses.replace(camera, c2w_t=forward_ad.make_dual(
+            camera.c2w_t, torch.tensor(JVP_TANGENT, device=dev)))
+        o, d, lam, rk = grad_rays(cam, res, 1, dev)
+        if sub is not None:
+            o, d, lam, rk = (x[sub] for x in (o, d, lam, rk))
+        r, lam_out, _, prims = path_trace.integrate(
+            scene, o, d, lam, ray_key=rk, fixed_depth=depth,
+            trace_prims=True, checkpoint=checkpoint)
+        loss = forward_ad.unpack_dual(loss_r2(r, lam_out))
+        r = forward_ad.unpack_dual(r)
+        out = {"r": r.primal.detach(), "r_tan": r.tangent.detach(),
+               "loss": float(loss.primal), "loss_tan": float(loss.tangent),
+               "prims": prims}
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["launches"] = _launch_counts()
+    return out
+
+
+def vjp_render(scene, camera, depth):
+    """The same loss as :func:`jvp_render` at full width by reverse mode:
+    (loss, <grad L, JVP_TANGENT>, wall seconds, peak bytes above those
+    allocated before)."""
+    import dataclasses
+
+    from lumo_tpu_torch.integrators import path_trace
+    dev = scene.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    c2w_t = camera.c2w_t.detach().clone().requires_grad_(True)
+    o, d, lam, rk = grad_rays(dataclasses.replace(camera, c2w_t=c2w_t), RES,
+                              1, dev)
+    r, lam_out, _ = path_trace.integrate(scene, o, d, lam, ray_key=rk,
+                                         fixed_depth=depth)
+    loss = loss_r2(r, lam_out)
+    loss.backward()
+    loss = loss.detach()
+    v = torch.tensor(JVP_TANGENT, device=dev)
+    dot = float((c2w_t.grad * v).sum())
+    torch.cuda.synchronize()
+    return (float(loss), dot, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def _check_lanes(scene, full):
+    """JVP_CHECK lane ids of a full-width render, half whose first bounce
+    hit the blob (the scene's last material, its metal), half others,
+    drawn with a fixed seed."""
+    first = full["prims"][0].cpu()
+    mat = scene.tri_mat.cpu()
+    on_blob = (first >= 0) & (first < mat.shape[0])
+    on_blob &= mat[first.clamp(0, mat.shape[0] - 1)] == int(mat.max())
+    g = torch.Generator().manual_seed(13)
+    pick = lambda ids, n: ids[torch.randperm(ids.numel(), generator=g)[:n]]
+    ids = torch.cat([pick(on_blob.nonzero()[:, 0], JVP_CHECK // 2),
+                     pick((~on_blob).nonzero()[:, 0], JVP_CHECK // 2)])
+    return ids.to(scene.device), int(on_blob.sum())
+
+
+def _padded(prims, n):
+    """Per-bounce prims (bounces, lanes) padded with -1 to n bounces."""
+    pad = torch.full((n - prims.shape[0], prims.shape[1]), -1,
+                     dtype=prims.dtype, device=prims.device)
+    return torch.cat([prims, pad])
+
+
+def jvp_route_check(phase, scene, camera, full, depth, accel):
+    """The lanes of :func:`_check_lanes` through the plain route against
+    the kernel's full-width render: lanes whose per-bounce prims differ
+    are counted and left out, the rest's radiance tangents within
+    (JVP_RTOL, JVP_ATOL_REL x the largest).  Returns (flips, max error
+    relative to that entry, lanes checked, blob lanes of the frame, plain
+    wall seconds)."""
+    sub, blob_lanes = _check_lanes(scene, full)
+    with _plain_routed(accel):
+        plain = jvp_render(scene, camera, depth, sub=sub)
+    pk, pp = full["prims"][:, sub], plain["prims"]
+    n = max(pk.shape[0], pp.shape[0])
+    same = (_padded(pk, n) == _padded(pp, n)).all(dim=0)
+    got, want = full["r_tan"][sub][same], plain["r_tan"][same]
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max()) / scale
+    if not (torch.allclose(got, want, rtol=JVP_RTOL,
+                           atol=JVP_ATOL_REL * scale)
+            and torch.allclose(full["r"][sub][same], plain["r"][same],
+                               rtol=1e-5, atol=1e-7)):
+        raise AssertionError(f"{phase}: the kernel's tangents disagree with "
+                             f"the plain route's (max error {err} of the "
+                             "largest entry)")
+    flips = int((~same).sum())
+    if flips > sub.numel() // 100 or scale == 0.0:
+        raise AssertionError(f"{phase}: {flips} flips of {sub.numel()} "
+                             f"lanes, largest tangent {scale}")
+    return flips, err, sub.numel(), blob_lanes, plain["wall"]
+
+
+def jvp_twin_check(phase, got, want):
+    """Two full-width frames of the same rays through two kernels: lanes
+    whose per-bounce hit pattern differs are counted (at most 1%) and left
+    out, the rest's radiance tangents within (JVP_RTOL, JVP_ATOL_REL x the
+    largest).  Returns (flips, max error relative to that entry, lanes)."""
+    n = max(got["prims"].shape[0], want["prims"].shape[0])
+    same = ((_padded(got["prims"], n) >= 0)
+            == (_padded(want["prims"], n) >= 0)).all(dim=0)
+    a, b = got["r_tan"][same], want["r_tan"][same]
+    scale = max(float(b.abs().max()), 1e-30)
+    err = float((a - b).abs().max()) / scale
+    flips = int((~same).sum())
+    if (flips > same.numel() // 100
+            or not torch.allclose(a, b, rtol=JVP_RTOL,
+                                  atol=JVP_ATOL_REL * scale)):
+        raise AssertionError(f"{phase}: {flips} flips, max error {err} of "
+                             "the largest entry against the other kernel")
+    return flips, err, same.numel()
+
+
+def phase_jvp(scene, scene_kd, camera, dev):
+    """Forward-mode derivatives on the card: (a) the 327,692-triangle
+    scene at 256^2 (one sample, 65,536 lanes) with a tangent on the camera
+    origin through K2 at fixed depth and with Russian roulette, and through
+    K3 on the kd-built scene, each held on JVP_CHECK lanes against the
+    plain route (K3's Russian-roulette frame against K2's whole frame),
+    K2's fixed-depth loss tangent against reverse mode's <grad L, v>, with
+    the wall and peak bytes of both; (b)
+    ``tools/diag_grad.py``'s diagnosis (``lumo_tpu_torch.tools.diag_grad``)
+    at its own size, float32 and float64; (c) ``checkpoint=True`` against
+    ``False`` under forward mode.  The launches of each render are counted
+    from 0 and must be one closest and one any query a bounce."""
+    from lumo_tpu_torch.tools import diag_grad
+    t_phase = time.perf_counter()
+    tag = {"bvh": "k2", "kdtree": "k3"}
+    k2_rr = None
+    for accel, sc in (("bvh", scene), ("kdtree", scene_kd)):
+        jvp_render(sc, camera, JVP_DEPTH)                       # warm-up
+        for mode, depth in (("fixed", JVP_DEPTH), ("rr", None)):
+            full = jvp_render(sc, camera, depth)
+            phase = f"jvp-{tag[accel]}-{mode}"
+            bounces = full["prims"].shape[0]
+            mine = {k: v for k, v in full["launches"].items()
+                    if k.startswith(tag[accel])}
+            if (set(mine.values()) != {bounces}
+                    or sum(full["launches"].values()) != 2 * bounces):
+                raise AssertionError(f"{phase}: launches {full['launches']} "
+                                     f"for {bounces} bounces")
+            if not (bool(torch.isfinite(full["r_tan"]).all())
+                    and float(full["r_tan"].abs().max()) > 0.0):
+                raise AssertionError(f"{phase}: tangents zero or not finite")
+            extra = {}
+            if accel == "kdtree" and mode == "rr":
+                # K3 gives K2's t bit for bit on the same rays ([grad-kd]),
+                # and the plain kd walk through the whole Russian-roulette
+                # tail costs about 26 s: held against K2's frame instead
+                flips, err, lanes = jvp_twin_check(phase, full, k2_rr)
+                extra = dict(checked_against="k2-rr")
+            else:
+                flips, err, lanes, blob, plain_s = jvp_route_check(
+                    phase, sc, camera, full, depth, accel)
+                extra = dict(checked_against="plain", blob_lanes_of_frame=blob,
+                             plain_s=round(plain_s, 2))
+            if accel == "bvh" and mode == "rr":
+                k2_rr = full
+            if accel == "bvh" and mode == "fixed":
+                loss, dot, wall_r, peak_r = vjp_render(sc, camera, depth)
+                rel = abs(full["loss_tan"] - dot) / max(abs(dot), 1e-30)
+                if rel > JVP_IDENTITY_RTOL or dot == 0.0:
+                    raise AssertionError(f"{phase}: jvp {full['loss_tan']} "
+                                         f"against <grad L, v> {dot}")
+                extra.update(vjp_dot=dot, jvp_vs_vjp_rel_err=rel,
+                             identity_rtol=JVP_IDENTITY_RTOL,
+                             reverse_wall_s=wall_r, reverse_peak_bytes=peak_r,
+                             reverse_loss=loss)
+            log(phase, res=f"{RES}x{RES}", spp=1, lanes=RES * RES,
+                depth=depth if depth else "rr", bounces=bounces,
+                tangent=json.dumps(JVP_TANGENT).replace(" ", ""),
+                launches=json.dumps(full["launches"]).replace(" ", ""),
+                wall_s=full["wall"], peak_bytes=full["peak_bytes"],
+                loss=full["loss"], loss_tangent=full["loss_tan"],
+                checked_lanes=lanes, flips=flips, max_rel_err=err,
+                rtol=JVP_RTOL, atol_rel=JVP_ATOL_REL, **extra)
+
+    # (b) tools/diag_grad.py at its own size
+    t0 = time.perf_counter()
+    _reset_launches()
+    diag = diag_grad.main(*DIAG, device=dev)
+    log("jvp-diag-grad", res=DIAG[0], spp=DIAG[1],
+        wall_s=round(time.perf_counter() - t0, 3),
+        launches=json.dumps(_launch_counts()).replace(" ", ""),
+        result=json.dumps(diag).replace(" ", ""))
+    if not (all(np.isfinite(v) for v in diag.values())
+            and diag["cancellation"] >= 1.0
+            and diag["rel_err_gross"] <= DIAG_REL_ERR_GROSS):
+        raise AssertionError(f"jvp-diag-grad: {diag}")
+
+    # (c) the checkpointed bounce under forward mode
+    from lumo_tpu_torch.camera import build_camera
+    cam = build_camera(resolution=(JVP_CKPT_RES, JVP_CKPT_RES), device=dev)
+    runs = {c: jvp_render(scene, cam, JVP_DEPTH, res=JVP_CKPT_RES,
+                          checkpoint=c) for c in (False, True)}
+    off, on = runs[False], runs[True]
+    equal = torch.equal(on["r_tan"], off["r_tan"])
+    scale = max(float(off["r_tan"].abs().max()), 1e-30)
+    err = float((on["r_tan"] - off["r_tan"]).abs().max()) / scale
+    log("jvp-checkpoint", res=f"{JVP_CKPT_RES}x{JVP_CKPT_RES}", spp=1,
+        depth=JVP_DEPTH, bit_equal=equal, max_rel_err=err,
+        launches_on=json.dumps(on["launches"]).replace(" ", ""),
+        launches_off=json.dumps(off["launches"]).replace(" ", ""),
+        wall_s_on=on["wall"], wall_s_off=off["wall"],
+        peak_bytes_on=on["peak_bytes"], peak_bytes_off=off["peak_bytes"])
+    if (err > GRAD_ATOL_REL or on["launches"] != off["launches"]
+            or on["launches"]["k2_closest"] != JVP_DEPTH):
+        raise AssertionError("jvp-checkpoint: the checkpointed bounce "
+                             "differs under forward mode")
+    log("jvp", phase_s=round(time.perf_counter() - t_phase, 1))
+
+
 def run_phases(dev, started):
     """Every phase on ``dev``, then the kernels' line; ``started["ranks"]``
     gets ``[devices]``' ranks when they start."""
@@ -2830,6 +3096,7 @@ def run_phases(dev, started):
     phase_parity_kd(scene_kd, dev)
     phase_grad_kd(scene_kd, scene, parity)
     phase_render_kd_stream(scene_kd, camera)
+    phase_jvp(scene, scene_kd, camera, dev)
     refs = {}     # [devices]' one-device frames, rendered by [direct], [bdpt]
     phase_direct({"bvh": scene, "kdtree": scene_kd}, camera, dev, refs)
     del scene_kd

@@ -247,14 +247,18 @@ OPS = (torch.ops.lumo_tpu_torch.bvh_closest.default,
 
 def closest_query(bvh, tri, o, d, t_max):
     """:func:`closest_hit` through its registered operator."""
+    t_max = rows(t_max, o)
+    check_no_grad("BVH closest-hit", o, d, t_max, tangent=True)
     return torch.ops.lumo_tpu_torch.bvh_closest(
-        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, rows(t_max, o))
+        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, t_max)
 
 
 def any_query(bvh, tri, o, d, t_max):
     """:func:`any_hit` through its registered operator."""
+    t_max = rows(t_max, o)
+    check_no_grad("BVH any-hit", o, d, t_max, tangent=True)
     return torch.ops.lumo_tpu_torch.bvh_any(
-        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, rows(t_max, o))
+        bvh["nodes"], bvh["tris"], *tri, bvh["depth"], o, d, t_max)
 
 
 def _chunks(o, T):

@@ -16,6 +16,7 @@ import threading
 import time
 
 import torch
+from torch.autograd import forward_ad
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -174,13 +175,22 @@ def reference_route(o, tri, plain_counts, query) -> bool:
     return True
 
 
-def check_no_grad(what, o, d, t_max) -> None:
-    """Raise when a traversal query is handed rays that require grad: the
-    walk is not differentiated, so the caller detaches ``o``, ``d`` and
-    ``t_max`` first (``scene/trace.py`` does, and re-derives the hit
-    distance differentiably from the prim id)."""
+def check_no_grad(what, o, d, t_max, tangent=False) -> None:
+    """Raise when a traversal query is handed rays that require grad, or
+    with ``tangent`` rays that carry a forward-mode tangent: the walk is
+    not differentiated, so the caller detaches ``o``, ``d`` and ``t_max``
+    first (``scene/trace.py`` does, and re-derives the hit distance
+    differentiably from the prim id).  A registered query operator drops
+    a tangent without a word, so its caller checks for one before the
+    call (inside the operator no tensor carries one)."""
     for name, x in (("o", o), ("d", d), ("t_max", t_max)):
-        if isinstance(x, torch.Tensor) and x.requires_grad:
+        if not isinstance(x, torch.Tensor):
+            continue
+        why = ("requires grad" if x.requires_grad else
+               "carries a forward-mode tangent"
+               if tangent and forward_ad.unpack_dual(x).tangent is not None
+               else None)
+        if why:
             raise ValueError(
-                f"{what}: {name} requires grad; traversal is not "
+                f"{what}: {name} {why}; traversal is not "
                 f"differentiated, so pass {name}.detach()")

@@ -257,15 +257,17 @@ def _tables(kd, tri):
 def closest_query(kd, o, d, t_max, tri=None):
     """:func:`closest_hit` through its registered operator; ``tri``, the
     scene's (a, b, c) vertices, are what a float64 query tests."""
-    return torch.ops.lumo_tpu_torch.kd_closest(*_tables(kd, tri), o, d,
-                                               rows(t_max, o))
+    t_max = rows(t_max, o)
+    check_no_grad("kd closest-hit", o, d, t_max, tangent=True)
+    return torch.ops.lumo_tpu_torch.kd_closest(*_tables(kd, tri), o, d, t_max)
 
 
 def any_query(kd, o, d, t_max, tri=None):
     """:func:`any_hit` through its registered operator; ``tri`` as in
     :func:`closest_query`."""
-    return torch.ops.lumo_tpu_torch.kd_any(*_tables(kd, tri), o, d,
-                                           rows(t_max, o))
+    t_max = rows(t_max, o)
+    check_no_grad("kd any-hit", o, d, t_max, tangent=True)
+    return torch.ops.lumo_tpu_torch.kd_any(*_tables(kd, tri), o, d, t_max)
 
 
 def grid(query: str, n: int):

@@ -27,8 +27,9 @@ dead lane misses every group too.
 
 The traversal is not differentiated: the walks get detached rays and
 ``t_max`` (``lumo_tpu/scene/trace.py:111-112,128,481-482``), and the hit
-distance they return is re-derived differentiably from the prim id by
-:class:`_HitT` (``_hit_t``, ``lumo_tpu/scene/trace.py:59-94``).  The dense
+distance they return is re-derived differentiably from the prim id, in
+reverse and in forward mode, by :class:`_HitT` (``_hit_t`` and its
+``_hit_t_jvp``, ``lumo_tpu/scene/trace.py:59-94``).  The dense
 tests (small scenes, the split-out walls of a BVH scene, spheres and
 analytic shapes) stay plain differentiable torch.
 
@@ -89,39 +90,67 @@ def _wall_t(scene: SceneData, o, d, t_max):
 class _HitT(torch.autograd.Function):
     """Differentiable hit distance of a traversal query.  Forward: the
     kernel's own ``t_k`` where ``hit``, INF elsewhere, with no triangle
-    gather.  Backward: gathers each lane's triangle by ``prim`` (its row
-    of the vertex tables ``a``, ``b``, ``c``) and pulls the cotangent
-    through the Woop recompute of ``t``, gated by ``hit`` and a finite
-    recomputed ``t``; the walk itself stays opaque."""
+    gather.  Backward and forward-mode tangent: gather each lane's
+    triangle by ``prim`` (its row of the vertex tables ``a``, ``b``,
+    ``c``) and carry the derivative through the Woop recompute of ``t``,
+    gated by the primal-only condition ``hit`` and a finite recomputed
+    ``t``; the walk itself stays opaque."""
 
     @staticmethod
     def forward(ctx, o, d, a, b, c, prim, t_k, hit):
         ctx.save_for_backward(o, d, a, b, c, prim, hit)
+        ctx.save_for_forward(o, d, a, b, c, prim, hit)
         return torch.where(hit, t_k, INF)
 
     @staticmethod
-    def backward(ctx, g):
+    def _rows_grad(ctx, need, g):
+        """(t_re, per-lane gradients of ``sum(g * t_re)`` over the leaves
+        (o, d, a[prim], b[prim], c[prim]), None where not ``need``)."""
         o, d, a, b, c, prim, hit = ctx.saved_tensors
-        need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
+        # the recompute's own graph keeps its saved tensors: a checkpointed
+        # bounce's hooks must not pack them (they would recompute the
+        # bounce from inside its own forward)
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                lambda x: x, lambda x: x):
             leaves = [o.detach(), d.detach(),
                       *(x.detach()[prim] for x in (a, b, c))]
             for x, n in zip(leaves, need):
                 x.requires_grad_(n)
             kz, shear = geo.ray_setup(leaves[1])
-            t_re, _, _ = geo.triangle_t(leaves[0], kz, shear,
-                                        *(x[:, None] for x in leaves[2:]),
-                                        0.0, INF)
-            t_re = t_re[:, 0]
+            t_re = geo.triangle_t(leaves[0], kz, shear,
+                                  *(x[:, None] for x in leaves[2:]), 0.0,
+                                  INF)[0][:, 0]
             gate = hit & torch.isfinite(t_re)
             wanted = [x for x, n in zip(leaves, need) if n]
             grads = iter(torch.autograd.grad(
                 t_re, wanted, torch.where(gate, g, 0.0)) if wanted else ())
-        out = [next(grads) if n else None for n in need]
+        return t_re.detach(), [next(grads) if n else None for n in need]
+
+    @staticmethod
+    def backward(ctx, g):
+        _, out = _HitT._rows_grad(ctx, ctx.needs_input_grad[:5], g)
+        _, _, a, b, c, prim, _ = ctx.saved_tensors
         for i, table in ((2, a), (3, b), (4, c)):
             if out[i] is not None:      # rows back into the vertex table
                 out[i] = torch.zeros_like(table).index_add_(0, prim, out[i])
         return (*out, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, do, dd, da, db, dc, *_):
+        # lane i's t reads only row i of each leaf, so the per-lane
+        # gradient of sum(t) dotted with the tangents is the exact
+        # tangent; absent tangents are zeros (JAX's SymbolicZero)
+        prim, hit = ctx.saved_tensors[5:]
+        tans = [do, dd, *(None if x is None else x[prim]
+                          for x in (da, db, dc))]
+        need = [x is not None for x in tans]
+        g = torch.ones(prim.shape, dtype=ctx.saved_tensors[0].dtype,
+                       device=prim.device)
+        if not any(need):
+            return torch.zeros_like(g)
+        t_re, grads = _HitT._rows_grad(ctx, need, g)
+        dt = sum((r * x).sum(-1) for r, x in zip(grads, tans) if r is not None)
+        return torch.where(hit & torch.isfinite(t_re), dt, 0.0)
 
 
 def _hit_t(scene: SceneData, o, d, t_k, p):

@@ -487,6 +487,68 @@ def test_fwd_bwd_through_kernel_matches_plain(card, accel):
                                        atol=1e-5 * max(scale, 1e-30))
 
 
+def _jvp_render(scene, cam, mod, rr=False):
+    """Forward mode of a 32x32 render (fixed depth 4, or Russian roulette)
+    with a tangent on ``c2w_t`` and on the vertex table ``tri_b``:
+    (radiance, its tangent, prims, launches)."""
+    import dataclasses
+
+    from torch.autograd import forward_ad
+
+    from lumo_tpu_torch.color import wavelength
+    from lumo_tpu_torch.integrators import path_trace
+    g = torch.Generator(device="cpu").manual_seed(3)
+    n = 32 * 32
+    raster = (torch.rand(n, 2, generator=g) * 32).to(scene.device)
+    lam = wavelength.sample(torch.rand(n, generator=g).to(scene.device))
+    key = torch.randint(0, 1 << 32, (n,), generator=g).to(scene.device)
+    db = 0.05 * torch.randn(scene.tri_b.shape, generator=g)
+    before = dict(mod.LAUNCHES)
+    with torch.no_grad(), forward_ad.dual_level():
+        c2w_t = forward_ad.make_dual(cam.c2w_t, torch.tensor(
+            [0.3, -0.2, 0.5], device=scene.device))
+        sc = dataclasses.replace(scene, tri_b=forward_ad.make_dual(
+            scene.tri_b, db.to(scene.device)))
+        o, d = dataclasses.replace(cam, c2w_t=c2w_t).generate_ray(
+            raster, torch.full_like(raster, 0.5))
+        r, _, _, prims = path_trace.integrate(
+            sc, o, d, lam, ray_key=key, fixed_depth=None if rr else 4,
+            trace_prims=True)
+        r, tan = forward_ad.unpack_dual(r)
+    launches = {k: mod.LAUNCHES[k] - before[k] for k in ("closest", "any")}
+    return r, tan, prims, launches
+
+
+@pytest.mark.parametrize("rr", [False, True], ids=["fixed", "rr"])
+@pytest.mark.parametrize("accel", ["bvh", "kdtree"])
+def test_forward_tangent_through_kernel_matches_plain(card, accel, rr):
+    """A forward-mode render (tangents on the camera origin and a vertex
+    table) through K2 (K3) equals the same routed to the plain versions
+    on lanes whose prims agree (the rest held under 1%): radiance within
+    rtol 1e-5, tangents within rtol 1e-4 plus 1e-5 of their largest
+    entry.  The kernels launch once a bounce: no dual ray reaches them."""
+    from lumo_tpu_torch.camera import build_camera
+    mod = kd_kernel if accel == "kdtree" else bvh_kernel
+    scene = blob_box("lumo_tpu_torch", 2).build(accel=accel, device=card)
+    cam = build_camera(resolution=(32, 32), device=card)
+    r_k, tan_k, pr_k, launches = _jvp_render(scene, cam, mod, rr)
+    assert launches["closest"] == launches["any"] == pr_k.shape[0] >= 4
+    with mock.patch.object(mod, "closest_hit", mod.closest_hit_plain), \
+            mock.patch.object(mod, "any_hit", mod.any_hit_plain):
+        r_p, tan_p, pr_p, _ = _jvp_render(scene, cam, mod, rr)
+    n = max(pr_k.shape[0], pr_p.shape[0])
+    pad = lambda p: torch.cat([p, p.new_full((n - p.shape[0], p.shape[1]),
+                                             -1)])
+    same = (pad(pr_k) == pad(pr_p)).all(dim=0)
+    assert int((~same).sum()) <= same.numel() // 100
+    assert bool(torch.isfinite(tan_k).all())
+    scale = float(tan_p[same].abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(r_k[same], r_p[same], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(tan_k[same], tan_p[same], rtol=1e-4,
+                               atol=1e-5 * scale)
+
+
 def test_stream_on_the_card_matches_batch(card):
     """``integrate_stream`` through K2 against batch ``integrate`` per
     sample: depth equal and radiance within rtol 1e-5, atol 1e-7 on all but
