@@ -1,0 +1,7 @@
+"""Mean milliseconds of a gradient step's ``torch.autograd.grad``, each
+closed by a synchronize, over the traced run's steps."""
+
+
+def read(run):
+    t = run.spans.times.get("backward")
+    return 1e3 * sum(t) / len(t) if run.kind == "grad" and t else None
