@@ -215,8 +215,9 @@ def phase_card():
     for lib in libs:
         for line in lib.ptxas_lines():
             print(f"  ptxas {lib.name}: {line}", flush=True)
-        log("card", library=lib.name, nvcc_build_s=round(lib.info["seconds"], 3)
-            if lib.info["seconds"] is not None else "cached")
+        log("card", library=lib.name,
+            kernel_load_s=round(lib.load_span.seconds, 3),
+            nvcc="built" if lib.info["log"] else "cached")
     log("card", all_builds_s=round(time.perf_counter() - t0, 3),
         parallel=True)
 

@@ -13,10 +13,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
 from torch.autograd import forward_ad
+
+from lumo_tpu_torch import telemetry
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -46,8 +47,11 @@ class Library:
         self.deps = [self.source] + [os.path.join(CSRC, h) for h in headers]
         self.so = os.path.join(BUILD_DIR, f"lib{name}.so")
         self.functions = functions
-        # what the last build printed (ptxas registers and spills) and took
-        self.info = {"log": "", "seconds": None}
+        # what the last build printed (ptxas registers and spills)
+        self.info = {"log": ""}
+        # the ``setup.kernel_load`` span of the load (stale check, nvcc,
+        # ctypes): its ``seconds`` once loaded
+        self.load_span = None
         self._lock = threading.Lock()
         self._lib = None
 
@@ -61,23 +65,22 @@ class Library:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{self.so}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-        t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
         os.replace(tmp, self.so)
         self.info["log"] = res.stderr + res.stdout
-        self.info["seconds"] = time.perf_counter() - t0
 
     def load(self):
         with self._lock:
             if self._lib is None:
-                if self.stale():
-                    self.build()
-                lib = ctypes.CDLL(self.so)
-                for fn, argtypes in self.functions.items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                with telemetry.span("setup.kernel_load") as self.load_span:
+                    if self.stale():
+                        self.build()
+                    lib = ctypes.CDLL(self.so)
+                    for fn, argtypes in self.functions.items():
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = ctypes.c_int
                 self._lib = lib
             return self._lib
 

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch import texture as texture_mod
 from lumo_tpu_torch.bsdf import microfacet as mf
 from lumo_tpu_torch.color import dense, uplift, wavelength
@@ -50,7 +51,8 @@ def kinds_present(kind_tbl) -> frozenset:
 def dispersive_mask(materials: dict, mat):
     """Lanes whose material terminates hero wavelengths on sampling
     (non-constant-eta dielectric)."""
-    return (materials["kind"][mat] == MF_DIELECTRIC) & ~materials["eta_const"][mat]
+    return ((telemetry.gather(materials["kind"], mat) == MF_DIELECTRIC)
+            & ~telemetry.gather(materials["eta_const"], mat))
 
 
 def gather_params(materials: dict, mat, lam, uv, textures=None, tex_kinds=(),
@@ -70,11 +72,12 @@ def gather_params(materials: dict, mat, lam, uv, textures=None, tex_kinds=(),
     need_mf = have(MF_CONDUCTOR, MF_DIFFUSE, MF_DIELECTRIC)
     need_tf = have(MF_DIELECTRIC)
     need_vol = have(VOLUMETRIC)
-    kind = m["kind"][mat]
-    rough = m["roughness"][mat]
-    rough_y = m["roughness_y"][mat]
+    kind = telemetry.gather(m["kind"], mat)
+    rough = telemetry.gather(m["roughness"], mat)
+    rough_y = telemetry.gather(m["roughness_y"], mat)
     zero4 = torch.zeros(kind.shape + (4,), dtype=lam.dtype, device=lam.device)
-    spectrum = lambda key: uplift.sample(m[key][mat][..., None, :], lam)
+    spectrum = lambda key: uplift.sample(
+        telemetry.gather(m[key], mat)[..., None, :], lam)
     if need_mf:
         eta4 = dense.sample_rows(m["eta"], mat, lam)
         k4 = dense.sample_rows(m["k"], mat, lam)
@@ -92,17 +95,18 @@ def gather_params(materials: dict, mat, lam, uv, textures=None, tex_kinds=(),
         "kind": kind,
         "kinds_present": kp,
         "alpha": torch.stack([rough, rough_y], dim=-1),
-        "mf_beck": m["mf_beck"][mat] if beck else False,
+        "mf_beck": telemetry.gather(m["mf_beck"], mat) if beck else False,
         "mf_delta": mf_delta,
         "is_delta": is_delta,
-        "is_specular": m["is_specular"][mat],
+        "is_specular": telemetry.gather(m["is_specular"], mat),
         "eta4": eta4,
         "k4": k4,
-        "eta_const": m["eta_const"][mat],
+        "eta_const": telemetry.gather(m["eta_const"], mat),
         "kd": spectrum("kd"),
         "ks": spectrum("ks") if need_mf else zero4,
         "tf": spectrum("tf") if need_tf else zero4,
-        "hg_g": m["hg_g"][mat] if need_vol else torch.zeros_like(rough),
+        "hg_g": (telemetry.gather(m["hg_g"], mat) if need_vol
+                 else torch.zeros_like(rough)),
         "sigma_t4": spectrum("sigma_t") if need_vol else zero4,
         "sigma_s4": spectrum("sigma_s") if need_vol else zero4,
     }
@@ -110,12 +114,12 @@ def gather_params(materials: dict, mat, lam, uv, textures=None, tex_kinds=(),
         out["t_scaled"] = torch.zeros_like(rough)
     else:
         out["t_scaled"] = torch.where(torch.isfinite(t), t, 0.0) \
-            * m["t_scale"][mat]
+            * telemetry.gather(m["t_scale"], mat)
     if textures is not None and uv is not None:
         slots = ("kd",) + (("ks",) if need_mf else ()) \
             + (("tf",) if need_tf else ())
         for slot in slots:
-            tid = m[slot + "_tex"][mat]
+            tid = telemetry.gather(m[slot + "_tex"], mat)
             val = texture_mod.albedo(textures, tid, lam, uv, kinds=tex_kinds)
             out[slot] = torch.where((tid >= 0)[..., None], val, out[slot])
     return out

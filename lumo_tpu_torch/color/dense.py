@@ -14,6 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch.config import DENSE_SAMPLES, LAMBDA_MAX, LAMBDA_MIN
 
 STEP = (LAMBDA_MAX - LAMBDA_MIN) / (DENSE_SAMPLES - 1)  # = 5nm
@@ -96,7 +97,8 @@ def sample(values, lam):
 def sample_rows(table, rows, lam):
     """Per-ray rows of a dense-spectrum table: table (M, 95), rows (N,)
     int, lam (N, 4) -> (N, 4)."""
-    return _interp(lambda i: table[rows[:, None], i], lam)
+    return _interp(lambda i: telemetry.gather(table, (rows[:, None], i)),
+                   lam)
 
 
 def to_xyz(values) -> np.ndarray:

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch.bsdf import eval as bsdf
 from lumo_tpu_torch.color import space, wavelength
 from lumo_tpu_torch.config import IMPORTANCE, RADIANCE, epsilon
@@ -135,7 +136,7 @@ def _walk(scene, o, d, lam, rng, gathered, pdf_sa, mode, delta_rr, prev_p,
                                 scene.textures, scene.tex_kinds, t=hit["t"],
                                 kinds=scene.kinds_present,
                                 beck=scene.beckmann)
-        kind = scene.materials["kind"][hit["mat"]]
+        kind = telemetry.gather(scene.materials["kind"], hit["mat"])
         is_surface = (kind != BLANK) & (kind != VOLUMETRIC) & ~hit["is_medium"]
 
         # forward pdf in area measure at this vertex (reference

@@ -6,7 +6,7 @@ one bounce per iteration under an alive mask.  Three loops share
 :func:`bounce`:
 
 - ``integrate``: a Python loop until no lane is alive or ``max_depth``
-  bounces have run (one host ``any()`` per bounce);
+  bounces have run (one host read of the live lanes' count per bounce);
 - ``integrate(..., fixed_depth=k)``: exactly ``k`` bounces and no host
   sync, the mode that is differentiated.  Autograd keeps every bounce's
   intermediates; with ``checkpoint=True`` each bounce runs under a
@@ -31,6 +31,7 @@ import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch.bsdf import eval as bsdf
 from lumo_tpu_torch.color import space, wavelength
 from lumo_tpu_torch.config import RADIANCE
@@ -59,90 +60,120 @@ def ray_keys(generator: torch.Generator, n: int, device=None):
     return _hash_u32(torch.arange(n, dtype=torch.int64, device=device) ^ base)
 
 
+@telemetry.spanned("path.bounce")
 def bounce(scene, s, delta):
-    """One wavefront bounce of the path state ``s`` (a dict)."""
-    rng = _hash_u32((s["rng"] + 0x9E3779B9) & MASK32)
-    hit = trace.intersect(scene, s["o"], s["d"], rng=rng, salt=_S_MED,
-                          alive=s["alive"])
-    alive = s["alive"] & hit["valid"]
-    wo = -s["d"]
-    lam = s["lam"]
-    # per-segment medium transmittance (reference ``path_trace.rs:20``)
-    tr_seg = trace.transmittance(scene, lam, hit["t"])
-    gathered0 = s["gathered"] * torch.where(alive[..., None], tr_seg, 1.0)
+    """One wavefront bounce of the path state ``s`` (a dict): the
+    ``path.bounce`` span, with one child span a phase."""
+    with telemetry.span("path.intersect"):
+        rng = _hash_u32((s["rng"] + 0x9E3779B9) & MASK32)
+        hit = trace.intersect(scene, s["o"], s["d"], rng=rng, salt=_S_MED,
+                              alive=s["alive"])
+        alive = s["alive"] & hit["valid"]
+        wo = -s["d"]
+        lam = s["lam"]
+        # per-segment medium transmittance (reference ``path_trace.rs:20``)
+        tr_seg = trace.transmittance(scene, lam, hit["t"])
+        gathered0 = s["gathered"] * torch.where(alive[..., None], tr_seg,
+                                                1.0)
 
-    # dispersion terminates hero wavelengths before the one gather that
-    # serves sampling, NEE and evaluation
-    lam2 = wavelength.terminate(lam, bsdf.dispersive_mask(scene.materials,
-                                                          hit["mat"]))
-    mp = bsdf.gather_params(scene.materials, hit["mat"], lam2, hit["uv"],
-                            scene.textures, scene.tex_kinds, t=hit["t"],
-                            kinds=scene.kinds_present, beck=scene.beckmann)
+    with telemetry.span("path.material"):
+        # dispersion terminates hero wavelengths before the one gather
+        # that serves sampling, NEE and evaluation
+        lam2 = wavelength.terminate(lam, bsdf.dispersive_mask(
+            scene.materials, hit["mat"]))
+        mp = bsdf.gather_params(scene.materials, hit["mat"], lam2, hit["uv"],
+                                scene.textures, scene.tex_kinds, t=hit["t"],
+                                kinds=scene.kinds_present,
+                                beck=scene.beckmann)
 
-    u_lobe = _randfloat(rng, _S_LOBE)
-    u_sq = torch.stack([_randfloat(rng, _S_SQ0), _randfloat(rng, _S_SQ1)],
-                       dim=-1)
-    wi, sample_ok, _ = bsdf.sample(mp, wo, hit["ns"], hit["backface"], lam2,
-                                   u_lobe, u_sq)
+    with telemetry.span("path.bsdf"):
+        u_lobe = _randfloat(rng, _S_LOBE)
+        u_sq = torch.stack([_randfloat(rng, _S_SQ0),
+                            _randfloat(rng, _S_SQ1)], dim=-1)
+        wi, sample_ok, _ = bsdf.sample(mp, wo, hit["ns"], hit["backface"],
+                                       lam2, u_lobe, u_sq)
 
-    # emitter hit: the path ends here; after a NEE vertex the emission is
-    # the BSDF-sampled MIS strategy (reference ``path_trace.rs:22-28``)
-    emit = trace.emitted(scene, hit["mat"], lam, hit["uv"], hit["backface"])
-    w_mis = common.emitter_mis_weight(scene, s["o"], s["d"], hit,
-                                      s["p_sct"], s["did_nee"])
-    add_emit = alive & ~sample_ok
-    radiance = s["radiance"] + torch.where(add_emit[..., None],
-                                           gathered0 * emit
-                                           * w_mis[..., None], 0.0)
-    alive = alive & sample_ok
+    with telemetry.span("path.emit"):
+        # emitter hit: the path ends here; after a NEE vertex the emission
+        # is the BSDF-sampled MIS strategy (reference
+        # ``path_trace.rs:22-28``)
+        emit = trace.emitted(scene, hit["mat"], lam, hit["uv"],
+                             hit["backface"])
+        w_mis = common.emitter_mis_weight(scene, s["o"], s["d"], hit,
+                                          s["p_sct"], s["did_nee"])
+        add_emit = alive & ~sample_ok
+        radiance = s["radiance"] + torch.where(add_emit[..., None],
+                                               gathered0 * emit
+                                               * w_mis[..., None], 0.0)
+        alive = alive & sample_ok
 
-    # NEE at non-delta vertices (reference ``path_trace.rs:30-40``)
-    nee = common.nee_rays(scene, mp, wo, gathered0, hit, lam2, rng)
-    do_nee = alive & ~mp["is_delta"]
-    radiance = radiance + torch.where(do_nee[..., None], nee, 0.0)
+    with telemetry.span("path.nee"):
+        # NEE at non-delta vertices (reference ``path_trace.rs:30-40``)
+        nee = common.nee_rays(scene, mp, wo, gathered0, hit, lam2, rng)
+        do_nee = alive & ~mp["is_delta"]
+        radiance = radiance + torch.where(do_nee[..., None], nee, 0.0)
 
-    # continue the path
-    ro = geo.offset_ray_origin(hit["p"], hit["err"], hit["ng"], wi)
-    f_val, p_sct = bsdf.f_pdf(mp, wo, wi, hit["ng"], hit["ns"],
-                              hit["backface"], lam2, RADIANCE)
-    alive = alive & (p_sct > 1e-12) & torch.isfinite(p_sct)
-    p_safe = torch.where(alive, p_sct, 1.0)
-    # a medium is sampled by its phase function exactly, so the pdf
-    # cancels (reference ``path_trace.rs:52-58``)
-    f_val = torch.where(hit["is_medium"][..., None],
-                        f_val * p_safe[..., None], f_val)
-    f_val = torch.where(alive[..., None], f_val, 0.0)
-    cosine = bsdf.shading_cosine(mp, wi, hit["ns"])
-    gathered = gathered0 * f_val * (cosine / p_safe)[..., None]
+    # continue the path (the two BSDF calls keep their place in the
+    # bounce's order, and so the gradients' order of accumulation)
+    with telemetry.span("path.bsdf"):
+        ro = geo.offset_ray_origin(hit["p"], hit["err"], hit["ng"], wi)
+        f_val, p_sct = bsdf.f_pdf(mp, wo, wi, hit["ng"], hit["ns"],
+                                  hit["backface"], lam2, RADIANCE)
+        cosine = bsdf.shading_cosine(mp, wi, hit["ns"])
 
-    # russian roulette after RR_DEPTH (reference ``path_trace.rs:65-72``)
-    lum = space.luminance(gathered, lam2)
-    rr_prob = torch.clamp(lum / delta, max=1.0)
-    u_rr = _randfloat(rng, _S_RR)
-    do_rr = s["depth"] >= RR_DEPTH
-    alive = alive & ~(do_rr & (u_rr > rr_prob))
-    rr_div = torch.where(do_rr & alive, torch.clamp(rr_prob, min=_TINY), 1.0)
-    gathered = gathered / rr_div.detach()[..., None]
+    with telemetry.span("path.roulette"):
+        alive = alive & (p_sct > 1e-12) & torch.isfinite(p_sct)
+        p_safe = torch.where(alive, p_sct, 1.0)
+        # a medium is sampled by its phase function exactly, so the pdf
+        # cancels (reference ``path_trace.rs:52-58``)
+        f_val = torch.where(hit["is_medium"][..., None],
+                            f_val * p_safe[..., None], f_val)
+        f_val = torch.where(alive[..., None], f_val, 0.0)
+        gathered = gathered0 * f_val * (cosine / p_safe)[..., None]
 
-    a3 = alive[..., None]
-    out = {
-        "o": torch.where(a3, ro, s["o"]),
-        "d": torch.where(a3, wi, s["d"]),
-        "lam": torch.where(a3, lam2, lam),
-        "radiance": radiance,
-        "gathered": torch.where(a3, gathered, s["gathered"]),
-        "alive": alive,
-        "did_nee": torch.where(alive, do_nee, s["did_nee"]),
-        "p_sct": torch.where(alive, p_sct, s["p_sct"]),
-        "depth": s["depth"] + alive.to(s["depth"].dtype),
-        "rng": rng,
-        # the prim each live lane hit this bounce, -1 for dead or missed
-        # lanes: the discrete path topology
-        "prim": torch.where(s["alive"] & hit["valid"], hit["prim"], -1),
-    }
-    for k in s:                         # per-sample metadata rides along
-        out.setdefault(k, s[k])
+        # russian roulette after RR_DEPTH (reference
+        # ``path_trace.rs:65-72``)
+        lum = space.luminance(gathered, lam2)
+        rr_prob = torch.clamp(lum / delta, max=1.0)
+        u_rr = _randfloat(rng, _S_RR)
+        do_rr = s["depth"] >= RR_DEPTH
+        alive = alive & ~(do_rr & (u_rr > rr_prob))
+        rr_div = torch.where(do_rr & alive, torch.clamp(rr_prob, min=_TINY),
+                             1.0)
+        gathered = gathered / rr_div.detach()[..., None]
+
+        a3 = alive[..., None]
+        out = {
+            "o": torch.where(a3, ro, s["o"]),
+            "d": torch.where(a3, wi, s["d"]),
+            "lam": torch.where(a3, lam2, lam),
+            "radiance": radiance,
+            "gathered": torch.where(a3, gathered, s["gathered"]),
+            "alive": alive,
+            "did_nee": torch.where(alive, do_nee, s["did_nee"]),
+            "p_sct": torch.where(alive, p_sct, s["p_sct"]),
+            "depth": s["depth"] + alive.to(s["depth"].dtype),
+            "rng": rng,
+            # the prim each live lane hit this bounce, -1 for dead or
+            # missed lanes: the discrete path topology
+            "prim": torch.where(s["alive"] & hit["valid"], hit["prim"], -1),
+        }
+        for k in s:                     # per-sample metadata rides along
+            out.setdefault(k, s[k])
     return out
+
+
+def _any_alive(alive) -> bool:
+    """The per-bounce liveness test, the loop's one host sync (the
+    ``sync.alive`` span): the live lanes' count.  While a profiler records
+    it counts the lanes entering the next bounce (``lanes.total``) and the
+    live ones (``lanes.alive``)."""
+    with telemetry.span("sync.alive"):
+        n = int(alive.sum())
+    if n and telemetry.on():
+        telemetry.add("lanes.total", alive.shape[0])
+        telemetry.add("lanes.alive", n)
+    return n > 0
 
 
 def _save_queries(ctx, op, *args, **kwargs):
@@ -180,6 +211,7 @@ def initial_state(o, d, lam, ray_key):
     }
 
 
+@telemetry.spanned("path.integrate")
 def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
               max_depth=MAX_DEPTH, trace_prims=False, fixed_depth=None,
               checkpoint=False):
@@ -206,7 +238,7 @@ def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
     prims = []
     if fixed_depth is None:
         for _ in range(max_depth):
-            if not bool(s["alive"].any()):
+            if not _any_alive(s["alive"]):
                 break
             s = bounce(scene, s, delta)
             prims.append(s["prim"])
@@ -274,8 +306,8 @@ def integrate_stream(scene, gen, fold, acc0, n_lanes, n_samples, delta=1.0,
         iteration from the running accumulator (the renderer's adaptive
         delta = sqrt(var/cost)); overrides ``delta`` when given.
     Samples are issued in index order, the dead lanes of an iteration
-    taking the next ones by a cumulative sum; one ``any()`` test per
-    iteration ends the loop.  Returns the final acc."""
+    taking the next ones by a cumulative sum; one liveness test per
+    iteration (the live lanes' count) ends the loop.  Returns the final acc."""
     L = n_lanes
     dev = scene.device
     idx0 = torch.arange(L, dtype=torch.int64, device=dev)
@@ -293,7 +325,7 @@ def integrate_stream(scene, gen, fold, acc0, n_lanes, n_samples, delta=1.0,
                    idx0 < n_samples)
     issued = torch.full((), min(L, n_samples), dtype=torch.int64, device=dev)
     acc = acc0
-    while bool(state["alive"].any()):
+    while _any_alive(state["alive"]):
         d = delta if delta_fn is None else delta_fn(acc, state)
         s2 = bounce(scene, state, d)
         s2["alive"] = s2["alive"] & (s2["depth"] < max_bounces)

@@ -30,6 +30,7 @@ import time
 import torch
 
 from lumo_tpu_torch import film as film_mod
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch.camera import Camera
 from lumo_tpu_torch.color import space as space_mod
 from lumo_tpu_torch.color import wavelength
@@ -298,27 +299,30 @@ class Renderer:
             splat = self._make_splat()
 
         def work(ray_ids, sample_base, stats):
-            smp = gen(ray_ids + int(sample_base) * n_pix)
+            with telemetry.span("render.camera"):
+                smp = gen(ray_ids + int(sample_base) * n_pix)
             o, d, lam, key = smp["o"], smp["d"], smp["lam"], smp["rng"]
             film_p = film_mod.new_film((w, h), device=scene.device)
-            if kind == DIRECT_LIGHT:
-                radiance, lam_out, depth = direct_light.integrate(
-                    scene, o, d, lam, ray_key=key)
-            elif kind == BD_PATH_TRACE:
-                radiance, lam_out, sr, sc, sm, depth = bdpt.integrate(
-                    scene, camera, o, d, lam, ray_key=key,
-                    delta=self._delta_of(stats, smp["pix"]),
-                    max_verts=depth_b)
-            else:
-                radiance, lam_out, depth = path_trace.integrate(
-                    scene, o, d, lam, ray_key=key,
-                    delta=self._delta_of(stats, smp["pix"]))
-            stats_p, rays = fold(film_p, self.new_stats(n_pix), smp,
-                                 radiance, lam_out, depth)
-            if kind == BD_PATH_TRACE:
-                # light-traced samples land at their own raster coordinates
-                # (reference ``film/tile.rs:96-111``)
-                splat(film_p, sr, sc, sm, lam_out)
+            with telemetry.span("render.integrate"):
+                if kind == DIRECT_LIGHT:
+                    radiance, lam_out, depth = direct_light.integrate(
+                        scene, o, d, lam, ray_key=key)
+                elif kind == BD_PATH_TRACE:
+                    radiance, lam_out, sr, sc, sm, depth = bdpt.integrate(
+                        scene, camera, o, d, lam, ray_key=key,
+                        delta=self._delta_of(stats, smp["pix"]),
+                        max_verts=depth_b)
+                else:
+                    radiance, lam_out, depth = path_trace.integrate(
+                        scene, o, d, lam, ray_key=key,
+                        delta=self._delta_of(stats, smp["pix"]))
+            with telemetry.span("render.fold"):
+                stats_p, rays = fold(film_p, self.new_stats(n_pix), smp,
+                                     radiance, lam_out, depth)
+                if kind == BD_PATH_TRACE:
+                    # light-traced samples land at their own raster
+                    # coordinates (reference ``film/tile.rs:96-111``)
+                    splat(film_p, sr, sc, sm, lam_out)
             return film_p, stats_p, rays
 
         return work
@@ -403,7 +407,7 @@ class Renderer:
                                     st["depth"], mask=term)
             return film, stats, rays + r
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         film = film_mod.new_film((w, h), device=self.scene.device)
         acc = path_trace.integrate_stream(
             self.scene, lambda idx: gen(idx + base), fold,
@@ -413,9 +417,9 @@ class Renderer:
             delta_fn=lambda acc, st: self._delta_of(acc[1], st["pix"]))
         film, _, rays = mesh_mod.psum(acc, mesh)
         img = film_mod.finalize(film, self._filter, 1.0 / self._samples)
-        out = img.cpu().numpy()
+        out = _readback(img)
         if verbose:
-            el = time.time() - t0
+            el = time.perf_counter() - t0
             total_rays = int(rays)
             print(f"Rendered {w}x{h}@{self._samples}spp (stream) on {n_dev} "
                   f"device(s) ({self.scene.device}): "
@@ -439,24 +443,27 @@ class Renderer:
         step = mesh_mod.shard_step(mesh, work, n_rays)
         film = film_mod.new_film((w, h), device=self.scene.device)
         stats = self.new_stats(w * h)
+        # the ray count stays on the device: read only where it is printed
         total_rays = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
         n_batches = (self._samples + spp_batch - 1) // spp_batch
         for b in range(n_batches):
-            film, stats, rays = step(film, stats, b * spp_batch)
-            total_rays += int(rays)
+            with telemetry.span("render.step"):
+                film, stats, rays = step(film, stats, b * spp_batch)
+            total_rays = total_rays + rays
             if verbose and (b == 0 or (b + 1) % 8 == 0 or b == n_batches - 1):
-                el = time.time() - t0
+                el = time.perf_counter() - t0
                 # ETA from completed batches (reference's progress bar,
                 # ``renderer.rs:140-156``)
                 eta = el / (b + 1) * (n_batches - b - 1)
                 print(f"  batch {b + 1}/{n_batches}  "
-                      f"{total_rays / max(el, 1e-9) / 1e6:.2f} Mray/s  "
+                      f"{int(total_rays) / max(el, 1e-9) / 1e6:.2f} Mray/s  "
                       f"ETA {eta:.0f}s", flush=True)
         img = film_mod.finalize(film, self._filter, 1.0 / self._samples)
-        out = img.cpu().numpy()
+        out = _readback(img)
         if verbose:
-            el = time.time() - t0
+            el = time.perf_counter() - t0
+            total_rays = int(total_rays)
             print(f"Rendered {w}x{h}@{self._samples}spp on {mesh.size} "
                   f"device(s) ({self.scene.device}): "
                   f"{total_rays / 1e6:.1f} Mrays in "
@@ -467,3 +474,8 @@ class Renderer:
     def save_png(self, img, path):
         film_mod.save_png(img, path, self._colorspace)
 
+
+def _readback(img):
+    """The image as a host array: the ``sync.readback`` span."""
+    with telemetry.span("sync.readback"):
+        return img.cpu().numpy()

@@ -34,12 +34,12 @@ block layout (``pack_blocks``) has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch.config import resolve_device
 from lumo_tpu_torch.geometry import analytic
 from lumo_tpu_torch.scene.materials import LIGHT, Material, pack_materials
@@ -405,6 +405,7 @@ class SceneBuilder:
         self.medium = (np.asarray(absorption, np.float64),
                        np.asarray(scattering, np.float64), float(g))
 
+    @telemetry.spanned("setup.scene_build")
     def build(self, dtype=np.float32, accel: str = "bvh",
               device=None) -> SceneData:
         """Pack the device scene on ``device`` (the card when ``None``).
@@ -438,28 +439,30 @@ class SceneBuilder:
         T_bvh = T
         if T >= BVH_THRESHOLD and accel == "bvh":
             from lumo_tpu_torch.accel import build as accel_build
-            t0 = time.perf_counter()
-            # Split dominant-area triangles (room walls/floors) out of the
-            # BVH: their huge boxes pass nearly every slab test.  They are
-            # dense-tested in ``trace`` instead, as the reference keeps
-            # walls as objects outside the mesh's tree (``scene.rs``).
-            area = 0.5 * np.linalg.norm(
-                np.cross(tri["b"] - tri["a"], tri["c"] - tri["a"]), axis=1)
-            huge = np.nonzero(area >= float(area.sum()) * 8.0 / T)[0]
-            if len(huge) > 64:
-                huge = huge[np.argsort(area[huge])[::-1][:64]]
-            if len(huge) == 0 or T - len(huge) < BVH_THRESHOLD:
-                huge = np.zeros(0, np.int64)
-            rest = np.setdiff1d(np.arange(T), huge)
-            T_bvh = len(rest)
-            lo_t, hi_t = accel_build.triangle_bounds(
-                tri["a"][rest], tri["b"][rest], tri["c"][rest])
-            bvh = accel_build.build(lo_t, hi_t)
-            el = time.perf_counter() - t0
-            if el > 0.05:
+            with telemetry.span("setup.bvh_build") as built:
+                # Split dominant-area triangles (room walls/floors) out of
+                # the BVH: their huge boxes pass nearly every slab test.
+                # They are dense-tested in ``trace`` instead, as the
+                # reference keeps walls as objects outside the mesh's tree
+                # (``scene.rs``).
+                area = 0.5 * np.linalg.norm(
+                    np.cross(tri["b"] - tri["a"], tri["c"] - tri["a"]),
+                    axis=1)
+                huge = np.nonzero(area >= float(area.sum()) * 8.0 / T)[0]
+                if len(huge) > 64:
+                    huge = huge[np.argsort(area[huge])[::-1][:64]]
+                if len(huge) == 0 or T - len(huge) < BVH_THRESHOLD:
+                    huge = np.zeros(0, np.int64)
+                rest = np.setdiff1d(np.arange(T), huge)
+                T_bvh = len(rest)
+                lo_t, hi_t = accel_build.triangle_bounds(
+                    tri["a"][rest], tri["b"][rest], tri["c"][rest])
+                bvh = accel_build.build(lo_t, hi_t)
+            if built.seconds > 0.05:
                 # build-phase timing (reference ``bvh.rs:234,312``)
                 print(f"BVH: {T_bvh} tris, {len(bvh.node_right)} nodes "
-                      f"(+{len(huge)} split-out) in {el:.2f}s", flush=True)
+                      f"(+{len(huge)} split-out) in {built.seconds:.2f}s",
+                      flush=True)
             # BVH tris in leaf order, then the split-out tris at the tail
             order = np.concatenate([rest[bvh.order], huge])
             tri = {k: v[order] for k, v in tri.items()}
@@ -468,14 +471,14 @@ class SceneBuilder:
         elif T >= BVH_THRESHOLD and accel == "kdtree":
             from lumo_tpu_torch.accel import build as accel_build
             from lumo_tpu_torch.accel import kdtree as accel_kd
-            t0 = time.perf_counter()
-            lo_t, hi_t = accel_build.triangle_bounds(
-                tri["a"], tri["b"], tri["c"])
-            kdt = accel_kd.build(lo_t, hi_t)
-            el = time.perf_counter() - t0
-            if el > 0.05:
+            with telemetry.span("setup.kd_build") as built:
+                lo_t, hi_t = accel_build.triangle_bounds(
+                    tri["a"], tri["b"], tri["c"])
+                kdt = accel_kd.build(lo_t, hi_t)
+            if built.seconds > 0.05:
                 print(f"kd-tree: {T} tris, {len(kdt.axis)} nodes, "
-                      f"{len(kdt.prims)} references in {el:.2f}s", flush=True)
+                      f"{len(kdt.prims)} references in {built.seconds:.2f}s",
+                      flush=True)
 
         # lights + alias table (power = area x material power,
         # reference ``bvh.rs:104-191``)

@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from lumo_tpu_torch import telemetry
 from lumo_tpu_torch import texture as texture_mod
 from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
 from lumo_tpu_torch.accel.walk import rows
@@ -65,6 +66,21 @@ FLAT_MIN = 5
 # the registered traversal operators, whose outputs a checkpointed bounce
 # saves (``integrators/path_trace.py``)
 QUERY_OPS = frozenset(bvh_kernel.OPS + kd_kernel.OPS)
+# the query wrappers (one registered operator each) called in this process
+_CALLED = set()
+
+
+def _query(fn, *args):
+    """``fn(*args)`` for a query wrapper of ``bvh_kernel`` or
+    ``kd_kernel``; the first call of each in the process is the
+    ``setup.first_query`` span (an operator's first dispatch loads torch's
+    compiler stack, and the first kernel launch loads its library)."""
+    if fn in _CALLED:
+        return fn(*args)
+    with telemetry.span("setup.first_query"):
+        out = fn(*args)
+    _CALLED.add(fn)
+    return out
 
 
 def _bvh_tris(scene: SceneData):
@@ -215,8 +231,8 @@ def _closest(scene: SceneData, o, d, t_max):
 def _tree_closest(scene: SceneData, o, d, t_max):
     """:func:`_closest` of a scene with a tree, before the groups."""
     if scene.kdtree is not None:
-        t_k, p = kd_kernel.closest_query(scene.kdtree, o.detach(), d.detach(),
-                                         t_max.detach(), _bvh_tris(scene))
+        t_k, p = _query(kd_kernel.closest_query, scene.kdtree, o.detach(),
+                        d.detach(), t_max.detach(), _bvh_tris(scene))
         t, prim = _hit_t(scene, o, d, t_k, p), torch.where(p < 0, 0, p)
     else:
         # split-out walls: dense test whose hit distance seeds the walk's
@@ -227,8 +243,8 @@ def _tree_closest(scene: SceneData, o, d, t_max):
             t_huge, p_huge = _argmin_t(_wall_t(scene, o, d, t_max))
             tm = torch.minimum(tm, torch.where(torch.isfinite(t_huge),
                                                t_huge.detach() * 1.0001, tm))
-        t_k, p = bvh_kernel.closest_query(scene.bvh, _bvh_tris(scene),
-                                          o.detach(), d.detach(), tm)
+        t_k, p = _query(bvh_kernel.closest_query, scene.bvh,
+                        _bvh_tris(scene), o.detach(), d.detach(), tm)
         t, prim = _hit_t(scene, o, d, t_k, p), torch.where(p < 0, 0, p)
         if t_huge is not None:
             better = t_huge < t
@@ -287,8 +303,8 @@ def _group_hit(grp, o, d, t_max):
     differentiable in o, d and the group's vertices (:class:`_HitT`)."""
     o_s, d_s, tm = o.detach(), d.detach(), t_max.detach()
     if grp["bvh"] is not None:
-        t_k, p = bvh_kernel.closest_query(grp["bvh"], _group_tris(grp), o_s,
-                                          d_s, tm)
+        t_k, p = _query(bvh_kernel.closest_query, grp["bvh"],
+                        _group_tris(grp), o_s, d_s, tm)
     else:
         t_k, p = _argmin_t(_group_t(grp, o_s, d_s, tm))
         p = torch.where(torch.isfinite(t_k), p, -1)
@@ -300,7 +316,8 @@ def _group_hit(grp, o, d, t_max):
 def _group_any(grp, o, d, t_max):
     """Any hit of detached local rays against one group."""
     if grp["bvh"] is not None:
-        return bvh_kernel.any_query(grp["bvh"], _group_tris(grp), o, d, t_max)
+        return _query(bvh_kernel.any_query, grp["bvh"], _group_tris(grp), o,
+                      d, t_max)
     return torch.isfinite(_group_t(grp, o, d, t_max)).any(dim=-1)
 
 
@@ -458,7 +475,7 @@ def intersect(scene: SceneData, o, d, t_max=None, rng=None, salt=0,
     # (reference ``material.rs:324-331``)
     ns = det["ns"]
     if scene.n_normal_maps:
-        nm = scene.materials["nm_tex"][mat]
+        nm = telemetry.gather(scene.materials["nm_tex"], mat)
         n_tan = texture_mod.normal_at(scene.textures, nm, det["uv"])
         ns = torch.where((nm >= 0)[..., None],
                          normalize(onb.to_world(ns, n_tan)), ns)
@@ -509,15 +526,15 @@ def occluded(scene: SceneData, o, d, t_max, rng=None, salt=0):
         o_s, d_s, tm = o.detach(), d.detach(), t_max.detach()
         occ_huge = None
         if scene.kdtree is not None:
-            occ = kd_kernel.any_query(scene.kdtree, o_s, d_s, tm,
-                                      _bvh_tris(scene))
+            occ = _query(kd_kernel.any_query, scene.kdtree, o_s, d_s, tm,
+                         _bvh_tris(scene))
         else:
             if scene.n_bvh_tris < scene.n_tris:
                 occ_huge = torch.isfinite(_wall_t(scene, o_s, d_s,
                                                   tm)).any(dim=-1)
                 tm = torch.where(occ_huge, 0.0, tm)
-            occ = bvh_kernel.any_query(scene.bvh, _bvh_tris(scene), o_s, d_s,
-                                       tm)
+            occ = _query(bvh_kernel.any_query, scene.bvh, _bvh_tris(scene),
+                         o_s, d_s, tm)
             if occ_huge is not None:
                 occ = occ | occ_huge
         if scene.n_spheres:
@@ -538,16 +555,16 @@ def emitted(scene: SceneData, mat, lam, uv, backface):
     ``lam``, a texture's where ``ke_tex`` names one (reference
     ``material.rs:223-234``)."""
     m = scene.materials
-    ke = uplift.sample(m["ke"][mat][..., None, :], lam)
+    ke = uplift.sample(telemetry.gather(m["ke"], mat)[..., None, :], lam)
     if scene.textures is not None:
-        tid = m["ke_tex"][mat]
+        tid = telemetry.gather(m["ke_tex"], mat)
         val = texture_mod.albedo(scene.textures, tid, lam, uv,
                                  kinds=scene.tex_kinds)
         ke = torch.where((tid >= 0)[..., None], val, ke)
     illum = dense.sample_rows(m["illum"], mat, lam)
-    scale = m["emit_scale"][mat][..., None]
-    is_light = (m["kind"][mat] == LIGHT)[..., None]
-    visible = (m["two_sided"][mat] | ~backface)[..., None]
+    scale = telemetry.gather(m["emit_scale"], mat)[..., None]
+    is_light = (telemetry.gather(m["kind"], mat) == LIGHT)[..., None]
+    visible = (telemetry.gather(m["two_sided"], mat) | ~backface)[..., None]
     return torch.where(is_light & visible, scale * ke * illum, 0.0)
 
 
