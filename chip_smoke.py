@@ -5,12 +5,17 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (BVH traversal with its stats variant,
-kd-tree traversal, the in-kernel loop microbenchmark), both native tree
+kd-tree traversal, the in-kernel loop microbenchmark, the material-table
+gradient), both native tree
 builders and the JPEG decoder from the sources in the checkout, all
 compilers at once, holds every kernel against its plain PyTorch version
 on the card, and drives the port's paths over ``bench.py``'s scenes at
 256x256:
 
+- the material-table gradient (``[table-grad]``): the backward of a
+  per-lane table read at the gradient cells' 524,288 lanes into (8,),
+  (8, 4) and the dense (8, 95) pair form, against autograd's
+  ``index_put_``;
 - forward: the 327,692-triangle scene of ``bench.py::bench_bvh_scene``
   through ``path_trace.integrate`` (4 samples per pixel, one wavefront of
   262,144 lanes), and the same scene built with ``accel="kdtree"``
@@ -18,7 +23,8 @@ on the card, and drives the port's paths over ``bench.py``'s scenes at
 - gradients (fixed depth, checkpointed bounces): the Cornell box
   (``[grad-cornell]``, the dense path) and the BVH scene
   (``[grad-bvh]``), each material leaf and the camera origin, fwd+bwd and
-  forward-only rays/s, peak memory with the checkpoint on and off; the
+  forward-only rays/s, peak memory with the checkpoint on and off, the
+  material-table gradient's launches a sample (backward only); the
   gradients through K2 against the plain versions (``[grad-parity]``) and
   through K3 against K2's (``[grad-kd]``);
 - the persistent wavefront: ``integrate_stream`` over 16 samples per
@@ -101,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -183,8 +190,9 @@ NATIVE_LIBS = ("bvh", "kdtree", "jpeg")
 
 def kernel_libraries():
     from lumo_tpu_torch.accel import bvh_kernel, kd_kernel
+    from lumo_tpu_torch.bsdf import table_grad
     from lumo_tpu_torch.tools import exp_sync
-    return [bvh_kernel.LIB, kd_kernel.LIB, exp_sync.LIB]
+    return [bvh_kernel.LIB, kd_kernel.LIB, exp_sync.LIB, table_grad.LIB]
 
 
 def phase_card():
@@ -810,6 +818,93 @@ def phase_sync(dev):
 
 
 # ---------------------------------------------------------------------------
+# the backward of per-lane material-table reads (csrc/table_grad.cu)
+
+TABLE_LANES = 524288   # the gradient cells' lanes a step
+TABLE_REPS = 50        # timed kernel calls (the plain version: a fifth)
+
+
+def table_grad_case(form, dev):
+    """(table shape, index) at ``TABLE_LANES`` lanes whose rows come in
+    runs of 64 lanes in half of the lanes and at random in the other
+    half: a row index into (8,) or (8, 4), or ``sample_rows``' pair into
+    (8, 95) with bins clamped at both edges."""
+    gen = torch.Generator().manual_seed(17)
+    lane = torch.arange(TABLE_LANES)
+    rows = torch.where((lane // 4096) % 2 == 0, (lane // 64 * 7) % 8,
+                       torch.randint(0, 8, (TABLE_LANES,), generator=gen))
+    if form == "dense":
+        bins = torch.randint(-3, 98, (TABLE_LANES, 4), generator=gen)
+        return (8, 95), (rows[:, None].to(dev), bins.clamp(0, 94).to(dev))
+    return ((8,) if form == "w1" else (8, 4)), rows.to(dev)
+
+
+def phase_table_grad(dev):
+    """The table-gradient kernel against its plain version (autograd's
+    ``index_put_(accumulate=True)``, ``table_grad.reduce_plain``) for
+    each form of :func:`table_grad_case`: integer cotangents (exact in
+    float32 in any order) equal to the float64 sums, random ones within
+    1024 ulps of each element's sum of |g|, two calls bit-identical; then
+    ms a call of the kernel back to back (``ms``: the host's issue of a
+    call may set it) and its two kernels' device time a call under the
+    profiler (``device_ms``, the kernel table's figure), the plain
+    version's ms (also the kernel table's library figure: ``index_put_``
+    is PyTorch's own kernel for this function), and the bound by bytes
+    (each index and cotangent read once, the table written once) at the
+    HBM rate.  Returns each form's row of the kernel table but its
+    launches, which the gradient phases count."""
+    from lumo_tpu_torch.bsdf import table_grad
+    eps = torch.finfo(torch.float32).eps
+    out = {}
+    for form in ("w1", "w4", "dense"):
+        shape, index = table_grad_case(form, dev)
+        pair = table_grad.index_pair(torch.empty(shape, device=dev), index)
+        lead = torch.broadcast_shapes(*(x.shape for x in pair
+                                        if x is not None))
+        g_shape = tuple(lead) + tuple(shape[1 if pair[1] is None else 2:])
+        gen = torch.Generator().manual_seed(3)
+        g_int = torch.randint(-4, 5, g_shape, generator=gen).float().to(dev)
+        g = torch.randn(g_shape, generator=gen).to(dev)
+        k_int = table_grad.reduce(g_int, shape, *pair)
+        if not torch.equal(k_int.double(), table_grad.reduce_plain(
+                g_int.double(), shape, *pair)):
+            raise AssertionError(f"table_grad {form}: integer sums differ")
+        k1 = table_grad.reduce(g, shape, *pair)
+        k2 = table_grad.reduce(g, shape, *pair)
+        torch.cuda.synchronize()
+        if not torch.equal(k1.view(torch.int32), k2.view(torch.int32)):
+            raise AssertionError(f"table_grad {form}: two calls differ")
+        want = table_grad.reduce_plain(g.double(), shape, *pair)
+        mass = table_grad.reduce_plain(g.double().abs(), shape, *pair)
+        err = float((k1.double() - want).abs().max())
+        if not bool(((k1.double() - want).abs() <= 1024 * eps * mass).all()):
+            raise AssertionError(f"table_grad {form}: error {err} beyond "
+                                 "1024 ulps of the sum of |g|")
+        plain_err = float((table_grad.reduce_plain(g, shape, *pair).double()
+                           - want).abs().max())
+        ms = timed_ms(lambda: table_grad.reduce(g, shape, *pair), TABLE_REPS)
+        plain_ms = timed_ms(lambda: table_grad.reduce_plain(g, shape, *pair),
+                            TABLE_REPS // 5)
+        _, on_card, _ = traced_frame(lambda: timed_ms(
+            lambda: table_grad.reduce(g, shape, *pair), TABLE_REPS))
+        device_ms = sum(e.duration_ns() for e in on_card
+                        if "_sums<" in e.name()) / 1e6 / TABLE_REPS
+        needed = (sum(x.numel() * 8 for x in pair if x is not None)
+                  + g.numel() * 4 + math.prod(shape) * 4)
+        bound_ms = needed / HBM_BYTES_PER_S * 1e3
+        log("table-grad", form=form, table=json.dumps(list(shape)).replace(
+            " ", ""), lanes=TABLE_LANES, ms=ms, device_ms=device_ms,
+            plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes", bytes_needed=needed,
+            max_abs_err=err, plain_max_abs_err=plain_err,
+            vs_float64="integer sums exact", repeat="bit-identical")
+        out[form] = {"ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": plain_ms}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the differentiable path (fixed depth, checkpointed bounces) and the stream
 
 GRAD_CORNELL_SPP = 2   # bench.py:44's 64 spp, cut for the script's time
@@ -832,9 +927,12 @@ def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
     fixed depth), accumulating the gradients of every float material leaf
     and of ``c2w_t`` over them.  Returns loss (summed), rays (2 x sum of
     depths), the gradients (None when ``backward`` is False), the prims of
-    each sample, wall seconds (synchronised), and, for a kernel module
-    ``kernels``, its launches during the forwards and the backwards."""
+    each sample, wall seconds (synchronised), for a kernel module
+    ``kernels`` its launches during the forwards and the backwards, and
+    the table-gradient kernel's launches by index form during each
+    (``table_grad.LAUNCHES``, set to 0 here)."""
     import dataclasses
+    from lumo_tpu_torch.bsdf import table_grad
     from lumo_tpu_torch.integrators import path_trace
     dev = scene.device
     mats = {k: v.detach().clone().requires_grad_(backward)
@@ -843,15 +941,23 @@ def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
     sc = dataclasses.replace(scene, materials={**scene.materials, **mats})
     cam = dataclasses.replace(camera, c2w_t=c2w_t)
     launches = {"fwd": {"closest": 0, "any": 0}, "bwd": {"closest": 0, "any": 0}}
-    snap = lambda: dict(kernels.LAUNCHES) if kernels is not None else {}
+    tables = {part: dict.fromkeys(table_grad.LAUNCHES, 0)
+              for part in ("fwd", "bwd")}
+    snap = lambda: ((dict(kernels.LAUNCHES) if kernels is not None else {}),
+                    dict(table_grad.LAUNCHES))
 
     def add(part, before):
+        now = snap()
         for k in launches[part]:
-            launches[part][k] += snap().get(k, 0) - before.get(k, 0)
+            launches[part][k] += now[0].get(k, 0) - before[0].get(k, 0)
+        for k in tables[part]:
+            tables[part][k] += now[1][k] - before[1][k]
 
     loss_sum = torch.zeros((), device=dev)
     rays = torch.zeros((), device=dev)
     prims = []
+    for k in table_grad.LAUNCHES:
+        table_grad.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.set_grad_enabled(backward):
@@ -877,7 +983,8 @@ def grad_pass(scene, camera, res, samples, depth, loss_fn, backward=True,
         grads = {k: v.grad for k, v in mats.items()}
         grads["c2w_t"] = c2w_t.grad
     return {"loss": float(loss_sum), "rays": float(rays), "grads": grads,
-            "prims": prims, "wall": wall, "launches": launches}
+            "prims": prims, "wall": wall, "launches": launches,
+            "table_launches": tables}
 
 
 def grads_finite(grads):
@@ -893,7 +1000,9 @@ def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
     and finiteness, peak device memory of one sample with the checkpoint on
     and off, the idle share of one profiled sample's fwd+bwd, and the
     kernel launches of one fwd+bwd (checkpoint on and off) beside those of
-    the forward alone: once per bounce each."""
+    the forward alone: once per bounce each.  The table-gradient kernel's
+    launches a sample by index form, checkpoint on and off, must come
+    from the backwards alone; returns those of the checkpoint-off run."""
     samples = list(range(1, spp + 1))
     for ckpt in (False, True):                                   # warm-up
         grad_pass(scene, camera, res, samples[:1], depth, loss_fn,
@@ -925,6 +1034,11 @@ def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
     run, off = runs_ckpt[0], runs[0]["launches"]
     both = {k: run["launches"]["fwd"][k] + run["launches"]["bwd"][k]
             for k in ("closest", "any")}
+    tables = {mode: {part: {k: int(v) if float(v).is_integer() else v
+                            for k, v in ((k, n / spp) for k, n in
+                                         r["table_launches"][part].items())}
+                     for part in ("fwd", "bwd")}
+              for mode, r in (("off", runs[0]), ("on", run), ("fwd", fwd[0]))}
     log(phase, res=f"{res}x{res}", spp=spp, depth=depth, lanes=res * res,
         runs=GRAD_RUNS, fwd_bwd_rays_per_s_median=float(np.median(rate)),
         fwd_bwd_rays_per_s_min=rate[0], fwd_bwd_rays_per_s_max=rate[-1],
@@ -949,7 +1063,18 @@ def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
             {k: off["fwd"][k] + off["bwd"][k] for k in off["fwd"]}).replace(
                 " ", ""),
         launches_forward_only=json.dumps(fwd[0]["launches"]["fwd"]).replace(" ", ""),
+        table_grad_launches_a_sample=json.dumps(
+            tables["off"]["bwd"]).replace(" ", ""),
+        checkpoint_table_grad_launches_a_sample=json.dumps(
+            tables["on"]["bwd"]).replace(" ", ""),
         kernel_ms_per_profiled_sample=json.dumps(per).replace(" ", ""))
+    if (any(tables[mode][part][k] for mode, part in (
+            ("off", "fwd"), ("on", "fwd"), ("fwd", "fwd"), ("fwd", "bwd"))
+            for k in tables["off"]["fwd"])
+            or not all(sum(tables[mode]["bwd"].values())
+                       for mode in ("off", "on"))):
+        raise AssertionError(f"{phase}: the table-gradient kernel ran "
+                             f"outside the backward or not in it: {tables}")
     once = {"closest": spp * depth, "any": spp * depth}
     if kernels is not None and not (
             both == fwd[0]["launches"]["fwd"] == off["fwd"] == once
@@ -957,6 +1082,7 @@ def phase_grad(phase, scene, camera, res, spp, depth, loss_fn, kernels=None,
         raise AssertionError(f"{phase}: the backward launched kernels: "
                              f"{both}, {off} against "
                              f"{fwd[0]['launches']['fwd']}")
+    return tables["off"]["bwd"]
 
 
 def _profiled_sample(scene, camera, res, depth, loss_fn):
@@ -3041,6 +3167,7 @@ def run_phases(dev, started):
     phase_card()
     phase_soup(dev)
     phase_soup_kd(dev)
+    table = phase_table_grad(dev)
     from lumo_tpu_torch.camera import build_camera
     camera = build_camera(resolution=(RES, RES), device=dev)
 
@@ -3066,13 +3193,13 @@ def run_phases(dev, started):
     from lumo_tpu_torch.camera import cornell_camera
     from lumo_tpu_torch.scene.cornell import cornell_box
     cornell = cornell_box().build(device=dev)
-    phase_grad("grad-cornell", cornell,
+    tg_cornell = phase_grad("grad-cornell", cornell,
                cornell_camera(resolution=(RES, RES), device=dev), RES,
                GRAD_CORNELL_SPP, GRAD_CORNELL_DEPTH,
                loss_rgb(film.wb_matrix("DCI-P3", "CORNELL")))
     del cornell
-    phase_grad("grad-bvh", scene, camera, RES, GRAD_SPP, GRAD_DEPTH, loss_r2,
-               kernels=bvh_kernel)
+    tg_bvh = phase_grad("grad-bvh", scene, camera, RES, GRAD_SPP, GRAD_DEPTH,
+                        loss_r2, kernels=bvh_kernel)
     parity = phase_grad_parity(scene, dev)
     phase_stream(scene, camera, dev)
 
@@ -3125,6 +3252,13 @@ def run_phases(dev, started):
             ("kd_any_hit", kd_src, nums_kd["any"], launches_kd["any"]),
             ("exp_sync", ("lumo_tpu_torch/csrc/exp_sync.cu",
                           "tools/exp_sync.py:42"), sync, sync["launches"])]
+    # the table-gradient kernel's launches: a fwd+bwd sample of
+    # [grad-cornell] and one of [grad-bvh], of the form the row times
+    tg_form = {"w1": "rows_w1", "w4": "rows_wide", "dense": "pair"}
+    rows += [(f"table_grad_{form}", ("lumo_tpu_torch/csrc/table_grad.cu",
+                                     "none: autograd's index_put_"), v,
+              tg_cornell[tg_form[form]] + tg_bvh[tg_form[form]])
+             for form, v in table.items()]
     kernels = []
     for name, (source, replaces), v, n_launches in rows:
         if n_launches <= 0:
@@ -3134,7 +3268,7 @@ def run_phases(dev, started):
             "replaces": replaces, "launches": n_launches,
             "max_abs_err": v["max_abs_err"], "ms": v["ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": None})
+            "bound_by": v["bound_by"], "library_ms": v.get("library_ms")})
     log("done", total_s=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -154,7 +154,12 @@ def reset() -> None:
 def gather(table, index):
     """``table[index]``: one per-lane read of a material table, counted as
     ``bsdf.table_gathers`` while a profiler records (each such read's
-    backward is one scatter-add over the lanes)."""
+    backward is one scatter-add over the lanes).  A table that requires
+    grad, read under grad mode, goes to ``bsdf.table_grad.gather``, which
+    chooses that scatter-add's implementation."""
     if _enabled():
         add("bsdf.table_gathers", 1)
+    if table.requires_grad and torch.is_grad_enabled():
+        from lumo_tpu_torch.bsdf import table_grad
+        return table_grad.gather(table, index)
     return table[index]

@@ -410,6 +410,122 @@ def test_exp_sync_kernel_matches_plain(card, variant):
 
 
 # ---------------------------------------------------------------------------
+# the backward of per-lane material-table reads
+
+TABLE_LANES = 524288
+TABLE_CASES = ["rows-w1", "rows-w4", "dense", "one-row", "empty",
+               "plain-path"]
+
+
+def _table_read(case, dev):
+    """(table shape, index) of a case: 524,288 lanes (none for "empty")
+    whose rows come in runs of 64 lanes in half of the lanes and at random
+    in the other half; every lane in row 5 for "one-row"; ``sample_rows``'
+    pair with bins clamped at both edges for "dense"; a (2000, 4) table,
+    too large for the kernel, for "plain-path"."""
+    gen = torch.Generator().manual_seed(17)
+    n = 0 if case == "empty" else TABLE_LANES
+    lane = torch.arange(n)
+    rows = torch.where((lane // 4096) % 2 == 0, (lane // 64 * 7) % 8,
+                       torch.randint(0, 8, (n,), generator=gen))
+    if case == "one-row":
+        rows = torch.full((n,), 5)
+    if case == "dense":
+        bins = torch.randint(-3, 98, (n, 4), generator=gen).clamp(0, 94)
+        return (8, 95), (rows[:, None].to(dev), bins.to(dev))
+    if case == "plain-path":
+        return (2000, 4), (rows * 250).to(dev)
+    return ((8,) if case == "rows-w1" else (8, 4)), rows.to(dev)
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_table_grad_kernel_matches_plain(card, case):
+    """The kernel against the module's plain ``index_put_`` reduction in
+    float64.  Integer cotangents (|g| <= 4, every partial sum an integer
+    below 2^24, so exact in float32 in any order) must give the float64
+    sums exactly; random float32 cotangents within 1024 ulps of each
+    element's sum of |g| (float32 summation order: the longest chain of
+    additions, a warp's 32, a warp's trips, 8 warps and at most 528
+    blocks, stays under 1024).  Two calls are bit-identical, and a call
+    counts its two launches (one with no lanes) under its index form.
+    "plain-path": the read keeps autograd's indexing node, and the kernel
+    itself refuses the table (its 8 copies pass the card's shared
+    memory)."""
+    from lumo_tpu_torch import telemetry
+    from lumo_tpu_torch.bsdf import table_grad
+    shape, index = _table_read(case, card)
+    table = torch.rand(shape, device=card)
+    pair = table_grad.index_pair(table, index)
+    leaf = table.clone().requires_grad_(True)
+    out = telemetry.gather(leaf, index)
+    assert torch.equal(out.detach(), table[index])
+    if case == "plain-path":
+        assert table_grad.route(table, index) is None
+        assert type(out.grad_fn).__name__ == "IndexBackward0"
+        with pytest.raises(RuntimeError, match="table gradient"):
+            table_grad.reduce(out.detach(), shape, *pair)
+        return
+    assert type(out.grad_fn).__name__ == "TableReadBackward"
+    gen = torch.Generator().manual_seed(3)
+    g_int = torch.randint(-4, 5, out.shape, generator=gen).float().to(card)
+    g_rand = torch.randn(out.shape, generator=gen).to(card)
+    for g in (g_int, g_rand):
+        form = ("pair" if pair[1] is not None else
+                "rows_w1" if len(shape) == 1 else "rows_wide")
+        before = dict(table_grad.LAUNCHES)
+        got = table_grad.reduce(g, shape, *pair)
+        again = table_grad.reduce(g, shape, *pair)
+        assert table_grad.LAUNCHES == {
+            **before, form: before[form] + (2 if case == "empty" else 4)}
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        want = table_grad.reduce_plain(g.double(), shape, *pair)
+        if g is g_int:
+            assert torch.equal(got.double(), want)
+            via_autograd, = torch.autograd.grad(out, leaf, g)
+            assert torch.equal(via_autograd, got)
+        else:
+            mass = table_grad.reduce_plain(g.double().abs(), shape, *pair)
+            eps = torch.finfo(torch.float32).eps
+            assert bool(((got.double() - want).abs()
+                         <= 1024 * eps * mass).all())
+    if case == "empty":
+        assert torch.equal(got, torch.zeros(shape, device=card))
+
+
+@pytest.mark.parametrize("form", ["rows", "dense"])
+def test_table_grad_kernel_float64_gradcheck_and_tangent(card, form):
+    """The kernel's float64 instance under ``gradcheck`` (backward and
+    forward mode) on a small table, and the forward-mode tangent through
+    ``TableRead.jvp`` equal to the tangent table read at the same index,
+    under grad mode."""
+    from torch.autograd import forward_ad
+
+    from lumo_tpu_torch import telemetry
+    from lumo_tpu_torch.bsdf import table_grad
+    gen = torch.Generator().manual_seed(23)
+    rows = torch.randint(0, 8, (300,), generator=gen)
+    if form == "dense":
+        index = (rows[:, None].to(card),
+                 torch.randint(0, 95, (300, 4), generator=gen).to(card))
+        shape = (8, 95)
+    else:
+        index, shape = rows.to(card), (8, 4)
+    leaf = torch.rand(shape, dtype=torch.float64, device=card,
+                      requires_grad=True)
+    before = sum(table_grad.LAUNCHES.values())
+    assert torch.autograd.gradcheck(lambda x: telemetry.gather(x, index),
+                                    (leaf,), check_forward_ad=True)
+    assert sum(table_grad.LAUNCHES.values()) > before
+    tangent = torch.rand(shape, dtype=torch.float64, device=card)
+    with forward_ad.dual_level():
+        out = telemetry.gather(forward_ad.make_dual(leaf, tangent), index)
+        assert type(out.grad_fn).__name__ == "TableReadBackward"
+        assert torch.equal(forward_ad.unpack_dual(out).tangent,
+                           tangent[index])
+
+
+# ---------------------------------------------------------------------------
 # the differentiable path and the stream through the kernels
 
 def _grad_render(scene, cam, weight, checkpoint=True):
