@@ -1,9 +1,10 @@
 """The readings that the limits of ``correct`` are set from, for one cell
 at its own size on the card, in one process: the program's numbers on
 each of ``--seeds`` (the lower readings) and the control's on each of
-``--control-seeds`` (the upper readings).  The control is the reference
-put in the program's place with its scene tables, camera rays and path
-state held in bfloat16 (``reference/__init__.py``).  Each seed runs as
+``--control-seeds`` (the upper readings).  The control is the
+configuration's reference (``cells.reference``) put in the program's
+place with its scene tables, camera rays and path state held in
+bfloat16 (the path tracer's: ``reference/__init__.py``).  Each seed runs as
 many units as a run compares (``check_passes`` or ``check_steps``) and
 compares them as a run does.  The benchmark's own runs never run this.
 

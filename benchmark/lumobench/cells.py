@@ -1,14 +1,19 @@
 """Cells resolved by name: ``BENCHMARK.json``'s workload, its
 configuration (``configs/<name>.json``), its traffic mix
-(``traffic/<name>.json``), its scene recipe (``scenes/<recipe>.py``) and
-the readers of its metrics (``metrics/<name>.py``).  Adding any of them
-is adding a file and an entry; no file here names one."""
+(``traffic/<name>.json``), its scene recipe (``scenes/<recipe>.py``),
+its reference (``reference/<name>.py``, or the ``reference`` package)
+and the readers of its metrics (``metrics/<name>.py``).  Adding any of
+them is adding a file and an entry; no file here names one."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
+import inspect
 import json
 import os
+
+from . import program
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -71,3 +76,45 @@ def scene_groups(config: dict):
     recipe = load_module(os.path.join(HERE, "scenes",
                                       f"{scene.pop('recipe')}.py"))
     return recipe.groups(scene)
+
+
+def reference(config: dict):
+    """The configuration's reference module: ``reference.<name>`` where
+    it names one (``"reference": "<name>"``), else the ``reference``
+    package, the path tracer."""
+    name = config.get("reference")
+    if name is None:
+        return importlib.import_module("reference")
+    if not (isinstance(name, str) and name.isidentifier()):
+        raise ValueError(f"reference {name!r} is not a module name")
+    return importlib.import_module(f"reference.{name}")
+
+
+def admit(config: dict, kind: str, groups, ref) -> None:
+    """Refuse, before anything is built, a cell whose configuration names
+    what the program's harness does not drive (a ``render`` setting
+    beyond ``program.RENDER_SETTINGS``, a material kind beyond
+    ``program.MATERIAL_KINDS``) or what its reference ``ref`` does not
+    declare: the integrator, a material kind of the groups, the traffic
+    kind, or a ``render`` setting its ``render_pixels`` does not take."""
+    render = config.get("render", {})
+    kinds = {g["material"]["kind"] for g in groups}
+    for what, named, known in (("render setting", set(render),
+                                program.RENDER_SETTINGS),
+                               ("material kind", kinds,
+                                program.MATERIAL_KINDS)):
+        for item in sorted(named - set(known)):
+            raise ValueError(f"unknown {what} {item!r}: the harness "
+                             f"drives {sorted(known)}")
+    integrator = render.get("integrator", program.DEFAULT_INTEGRATOR)
+    checks = [("integrator", {integrator}, ref.INTEGRATORS),
+              ("material kind", kinds, ref.MATERIALS),
+              ("traffic kind", {kind}, ref.TRAFFIC)]
+    if kind == "render":
+        # past scene, camera, spp, seed and pixels: the settings it takes
+        takes = list(inspect.signature(ref.render_pixels).parameters)[5:]
+        checks.append(("render setting", set(render), takes))
+    for what, named, held in checks:
+        for item in sorted(named - set(held)):
+            raise ValueError(f"{what} {item!r} is not held by the reference "
+                             f"{ref.__name__!r}, which holds {sorted(held)}")

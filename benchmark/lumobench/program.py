@@ -1,36 +1,52 @@
 """The system under test, driven through its public entry points: the
 scene builder, the camera, ``Renderer`` and ``path_trace.integrate``.
-The benchmark hands it the raw scene groups, the camera arguments and,
-for the gradient traffic, the rays; everything else is the program's
-own."""
+The benchmark hands it the raw scene groups, the camera arguments, the
+configuration's renderer settings and, for the gradient traffic, the
+rays; everything else is the program's own.
+
+What a configuration may name of the program, each checked against its
+reference (``cells.admit``) before anything is built:
+
+- ``RENDER_SETTINGS``: the one-argument ``Renderer`` methods that its
+  ``render`` object may hold, applied after ``samples`` and ``seed``;
+  without the object the renderer's defaults (``DEFAULT_INTEGRATOR``).
+- ``MATERIAL_KINDS``: the ``Material`` constructors a group's material
+  spec may name by ``kind``, its other keys the constructor's own
+  parameters (lambertian's ``spec`` is ``kd``; no texture ids), a
+  value ``{"srgb8": [r, g, b]}`` the uplift of that 8-bit sRGB colour."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import sys
 
 import torch
+
+RENDER_SETTINGS = ("integrator", "bdpt_depth")
+DEFAULT_INTEGRATOR = "path"         # the Renderer's own default
+MATERIAL_KINDS = ("lambertian", "diffuse", "metal", "transparent", "mirror",
+                  "glass", "light")
 
 
 def _material(spec: dict):
     from lumo_tpu_torch.color import uplift
     from lumo_tpu_torch.scene.materials import Material
     kind = spec["kind"]
-    if kind == "lambertian":
-        return Material.lambertian(spec["kd"])
-    if kind == "diffuse":
-        return Material.diffuse(spec["kd"])
-    if kind == "metal":
-        return Material.metal(spec["ks"], spec["roughness"], spec["eta"],
-                              spec["k"])
-    if kind == "light":
-        ke = spec["ke"]
-        if isinstance(ke, dict):
-            ke = uplift.from_srgb8(*ke["srgb8"]).reshape(4)
-        return Material.light(ke, scale=float(spec.get("scale", 1.0)),
-                              illuminant=spec.get("illuminant", "D65"),
-                              two_sided=bool(spec.get("two_sided", False)))
-    raise ValueError(f"unknown material kind {kind!r}")
+    if kind not in MATERIAL_KINDS:
+        raise ValueError(f"unknown material kind {kind!r}")
+    make = getattr(Material, kind)
+    # a key is the constructor's parameter; lambertian's ``spec`` keeps
+    # the configurations' key ``kd``
+    keys = {"kd" if p == "spec" else p: p
+            for p in inspect.signature(make).parameters
+            if not p.endswith("_tex")}
+    args = {k: v for k, v in spec.items() if k != "kind"}
+    if set(args) - set(keys):
+        raise ValueError(f"material kind {kind!r} takes no "
+                         f"{sorted(set(args) - set(keys))}")
+    return make(**{keys[k]: uplift.from_srgb8(*v["srgb8"]).reshape(4)
+                   if isinstance(v, dict) else v for k, v in args.items()})
 
 
 def build_scene(groups, accel: str, device):
@@ -53,12 +69,16 @@ def build_camera(args: dict, resolution, device):
                     for k, v in args.items()})
 
 
-def render_pass(scene, camera, spp: int, seed: int):
-    """One progressive pass through the system's normal entry; the image
-    is copied back to the host, as a user's program does."""
+def render_pass(scene, camera, spp: int, seed: int, **settings):
+    """One progressive pass through the system's normal entry, with the
+    configuration's renderer ``settings`` (``RENDER_SETTINGS``) applied
+    after ``samples`` and ``seed``; the image is copied back to the host,
+    as a user's program does."""
     from lumo_tpu_torch.renderer import Renderer
-    return Renderer(scene, camera).samples(spp).seed(seed).render(
-        verbose=False)
+    r = Renderer(scene, camera).samples(spp).seed(seed)
+    for key, value in settings.items():
+        r = getattr(r, key)(value)
+    return r.render(verbose=False)
 
 
 def grad_leaves(scene):

@@ -3,12 +3,14 @@ a JSON file of parameters (``traffic/<name>.json``); its ``kind`` picks
 the unit of work, and everything else is read from the file:
 
 - ``render``: a unit is one render, ``Renderer(scene,
-  camera).samples(spp).seed(s_k).render()``, its image copied back;
-  ``spp`` is the mix's own where it gives one, else the configuration's
-  ``render_spp``, and the warm-up renders ``warmup_spp`` (the same
-  steps, fewer of them).  ``check_passes``
+  camera).samples(spp).seed(s_k)``, then the configuration's ``render``
+  settings (its integrator, ``bdpt_depth``), then ``.render()``, its
+  image copied back; ``spp`` is the mix's own where it gives one, else
+  the configuration's ``render_spp``, and the warm-up renders
+  ``warmup_spp`` (the same steps, fewer of them).  ``check_passes``
   renders and ``check_pixels`` pixels of each, drawn from the seed, are
-  worked out again by the reference.
+  worked out again by the reference's ``render_pixels``, given the same
+  settings.
 - ``grad``: a unit is one material-gradient step: ``spp`` samples at
   every pixel in one wavefront, ``path_trace.integrate(...,
   fixed_depth)``, the configuration's loss, ``torch.autograd.grad`` over
@@ -17,7 +19,11 @@ the unit of work, and everything else is read from the file:
   ``check_steps`` steps drawn from the seed are.
 
 Unit ``k`` of a run draws its samples from ``(seed, k)``, so every seed
-sees the same sizes and only other samples."""
+sees the same sizes and only other samples.  The reference is the
+configuration's (``cells.reference``): every unit takes its ``Scene``,
+``Camera``, ``render_pixels``, ``grad_step`` and losses from that module,
+and ``workload`` refuses a cell that names what it does not hold
+(``cells.admit``) before anything is built."""
 from __future__ import annotations
 
 import gc
@@ -25,7 +31,7 @@ import gc
 import numpy as np
 import torch
 
-from . import check, inputs, program
+from . import cells, check, inputs, program
 from .trace import sync
 
 
@@ -38,9 +44,9 @@ class Workload:
 
     kind = None
 
-    def __init__(self, config: dict, traffic: dict, groups, seed: int,
+    def __init__(self, config: dict, traffic: dict, groups, ref, seed: int,
                  device, spans):
-        self.config, self.traffic = config, traffic
+        self.config, self.traffic, self.ref = config, traffic, ref
         self.groups, self.seed, self.device = groups, seed, device
         self.spans = spans
         res = config["resolution"]
@@ -64,12 +70,11 @@ class Workload:
             torch.cuda.empty_cache()
 
     def reference_scene(self, precision="float32"):
-        from reference.scene import Scene
-        return Scene(self.groups, self.device, precision)
+        return self.ref.Scene(self.groups, self.device, precision)
 
     def reference_camera(self):
-        from reference.camera import Camera
-        return Camera(self.config["camera"], self.resolution, self.device)
+        return self.ref.Camera(self.config["camera"], self.resolution,
+                               self.device)
 
 
 class Render(Workload):
@@ -82,13 +87,15 @@ class Render(Workload):
         self.spp = int(self.traffic.get("spp", self.config["render_spp"]))
         self.warmup_spp = min(self.spp, int(self.traffic["warmup_spp"]))
         self.pixels = self.resolution[0] * self.resolution[1]
+        self.settings = self.config.get("render", {})
 
     def run_unit(self, k: int, record=True, traced=False):
         s = inputs.unit_seed(self.seed, k)
         spp = self.warmup_spp if k < 0 else self.spp
         before = program.k2_closest_launches()
         with self.spans.span("unit"):
-            img = program.render_pass(self.scene, self.camera, spp, s)
+            img = program.render_pass(self.scene, self.camera, spp, s,
+                                      **self.settings)
         self.k2_closest.append(program.k2_closest_launches() - before)
         if record:
             self.records.append({"k": k, "seed": s, "image": img})
@@ -115,20 +122,20 @@ class Render(Workload):
         """{"image_rel_l1": ...} of the chosen pixels of the chosen passes
         against the reference (or, for the control, the reference in
         ``precision`` against the reference in float32)."""
-        from reference.render import render_pixels
         recs, pix = self.chosen()
         scene, cam = self.reference_scene(), self.reference_camera()
         progs, refs = [], []
         control = None if precision == "float32" else \
             self.reference_scene(precision)
         for rec, p in zip(recs, pix):
-            ref = render_pixels(scene, cam, self.spp, rec["seed"],
-                                p).cpu().numpy()
+            ref = self.ref.render_pixels(scene, cam, self.spp, rec["seed"],
+                                         p, **self.settings).cpu().numpy()
             if control is None:
                 got = rec["image"].reshape(-1, 3)[p]
             else:
-                got = render_pixels(control, cam, self.spp, rec["seed"],
-                                    p).cpu().numpy()
+                got = self.ref.render_pixels(control, cam, self.spp,
+                                             rec["seed"], p,
+                                             **self.settings).cpu().numpy()
             progs.append(got)
             refs.append(ref)
         return {"image_rel_l1": check.image_rel_l1(np.concatenate(progs),
@@ -169,26 +176,26 @@ class Grad(Workload):
 
     def compare(self, precision="float32"):
         """{"loss_rel", "grad_rel"}: the worst of the chosen steps."""
-        from reference import render
         rng = _rng(self.seed, 2)
         n = min(int(self.traffic["check_steps"]), len(self.records))
         recs = [self.records[i] for i in
                 sorted(rng.choice(len(self.records), n, replace=False))]
         g = self.config["grad"]
-        loss_fn = (render.loss_rgb(*g["wb"]) if g["loss"] == "rgb2"
-                   else render.loss_r2)
+        loss_fn = (self.ref.loss_rgb(*g["wb"]) if g["loss"] == "rgb2"
+                   else self.ref.loss_r2)
         scene = self.reference_scene()
         control = None if precision == "float32" else \
             self.reference_scene(precision)
         out = {"loss_rel": 0.0, "grad_rel": 0.0}
         for rec in recs:
             rays = self.rays(rec["k"])
-            lr, gr = render.grad_step(scene, *rays, self.depth, loss_fn)
+            lr, gr = self.ref.grad_step(scene, *rays, self.depth, loss_fn)
             gr = {k: v.cpu().numpy() for k, v in gr.items()}
             if control is None:
                 lp, gp = rec["loss"], rec["grads"]
             else:
-                lp, gp = render.grad_step(control, *rays, self.depth, loss_fn)
+                lp, gp = self.ref.grad_step(control, *rays, self.depth,
+                                            loss_fn)
                 lp, gp = float(lp), {k: v.cpu().numpy()
                                      for k, v in gp.items()}
             del rays
@@ -203,5 +210,9 @@ KINDS = {cls.kind: cls for cls in (Render, Grad)}
 
 
 def workload(config, traffic, groups, seed, device, spans) -> Workload:
-    return KINDS[traffic["kind"]](config, traffic, groups, seed, device,
+    """The cell's unit of work, after ``cells.admit`` has held the
+    configuration and the traffic kind to its reference."""
+    ref = cells.reference(config)
+    cells.admit(config, traffic["kind"], groups, ref)
+    return KINDS[traffic["kind"]](config, traffic, groups, ref, seed, device,
                                   spans)

@@ -26,4 +26,31 @@ program and not the yardstick.
 bounces are held in bfloat16 (arithmetic stays float32), the step a
 later change would be tempted to take to halve the wavefront's memory
 traffic.
+
+A configuration names its reference by ``"reference": "<name>"``, the
+module ``reference/<name>.py``; one that names none has this package.
+Every reference module declares what it holds (``INTEGRATORS``,
+``MATERIALS``, ``TRAFFIC``: the integrators, material kinds and traffic
+kinds it works out again, each a set of names) and exports what the
+harness's units call: ``Scene(groups, device, precision)``,
+``Camera(args, resolution, device)``, for the ``render`` traffic
+``render_pixels(scene, camera, spp, seed, pixels, **render)`` (the
+configuration's ``render`` settings as keywords) and for the ``grad``
+traffic ``grad_step``, ``loss_rgb`` and ``loss_r2``.  A cell whose
+configuration names anything its reference does not declare is refused
+before the scene is built (``lumobench/cells.py`` ``admit``).
 """
+from .camera import Camera
+from .render import grad_step, loss_r2, loss_rgb
+from .render import render_pixels as _render_pixels
+from .scene import Scene
+
+INTEGRATORS = frozenset({"path"})
+MATERIALS = frozenset({"lambertian", "diffuse", "metal", "light"})
+TRAFFIC = frozenset({"render", "grad"})
+
+
+def render_pixels(scene, camera, spp, seed, pixels, integrator="path"):
+    """``render.render_pixels`` of a configuration's ``render`` settings:
+    this reference takes its integrator, its one, and no other."""
+    return _render_pixels(scene, camera, spp, seed, pixels)

@@ -1,9 +1,10 @@
 """A rehearsal of one cell on the CPU at a tiny size, for finding wrong
 paths, shapes and control flow without a card: the whole run (scene,
 warm-up, closed loop, the traced units with ``--trace 1``, the
-comparison with the reference) with the resolution and the blob's
-subdivisions cut.  It reports the compared numbers and the work done,
-and no timing, rate or memory figure: those come from the card only.
+comparison with the configuration's reference) with the resolution and
+the blob's subdivisions cut.  It reports the compared numbers and the
+work done, and no timing, rate or memory figure: those come from the
+card only.
 
     python3 benchmark/rehearse.py --workload cornell.render [--res 16]
         [--subdiv 2] [--seconds 1] [--trace 0|1] [--seed 7]
