@@ -27,6 +27,14 @@ prefix pair connected and weighted by the power-heuristic MIS sweep
 Every draw is a counter hash of the per-ray key, with the JAX package's
 streams and salts, so the port's subpaths are the JAX package's bit for
 bit in their random numbers.
+
+While a profiler records (``telemetry``), each phase is a span
+(``bdpt.integrate``, ``bdpt.walk.light``, ``bdpt.walk.camera``,
+``bdpt.s0``, ``bdpt.s1``, ``bdpt.t1``, one ``bdpt.connect`` a batch) and
+three counters count the lanes handed to the connections' any-hit
+queries (``bdpt.connect.lanes``), those of them with a positive t_max
+(``bdpt.connect.live``) and the t = 1 splats that land
+(``bdpt.splats``).
 """
 from __future__ import annotations
 
@@ -468,10 +476,9 @@ def _connect(scene, lam, lp, cp, mp_l, mp_c, rng_con, s, ts):
             & (cl["light"] < 0) & (dot(wi_lc, ll["ng"]) >= epsilon()))
     rng = torch.cat([_salted(rng_con, s * 64 + t + 300, 0xC2B2AE35)
                      for t in ts])
-    occ = trace.occluded(scene, ro, wi_lc,
-                         torch.where(mask, dist * shrink(dist.dtype),
-                                     0.0).detach(),
-                         rng=rng, salt=_S_OCC)
+    t_max = torch.where(mask, dist * shrink(dist.dtype), 0.0).detach()
+    _count_query(t_max)
+    occ = trace.occluded(scene, ro, wi_lc, t_max, rng=rng, salt=_S_OCC)
     p_sct = (_vertex_pdf(cl, cl["wo"], wi, lam, mp_cl)
              * _vertex_pdf(ll, ll["wo"], -wi, lam, mp_ll))
     mask = mask & ~occ & (p_sct > 0.0)
@@ -494,12 +501,94 @@ def _connect(scene, lam, lp, cp, mp_l, mp_c, rng_con, s, ts):
 # ---------------------------------------------------------------------------
 # the integrator
 
+def _count_query(t_max):
+    """Count a connection's any-hit query: its lanes and its live lanes
+    (t_max > 0); only while a profiler records (a device reduction)."""
+    if telemetry.on():
+        telemetry.add("bdpt.connect.lanes", t_max.shape[0])
+        telemetry.add("bdpt.connect.live", int((t_max > 0.0).sum()))
+
+
 def _salted(rng, k, c):
     """The counter state of strategy number k: hash(rng + k * c) in
     uint32 (carried in int64)."""
     return _hash_u32(rng + ((k * c) & MASK32))
 
 
+def _strategy_s1(scene, camera, lam, cp, mp_c, rng_con, t, zero3, zeros,
+                 false):
+    """Strategy (1, t): a light point sampled from camera vertex t - 1 and
+    joined to it through one any-hit query (reference
+    ``connect_camera_path``, ``:158-213``); its contribution (N, 4)."""
+    cl, mp_cl = cp[t - 1], mp_c[t - 1]
+    rng_t = _salted(rng_con, t, 0x9E3779B9)
+    light, pdf_light = trace.sample_light(scene, _randfloat(rng_t, _S_PICK))
+    u_sq = torch.stack([_randfloat(rng_t, _S_SQ0),
+                        _randfloat(rng_t, _S_SQ1)], -1)
+    wi = trace.sample_towards(scene, light, cl["p"], u_sq).detach()
+    ro = geo.offset_ray_origin(cl["p"], cl["err"], cl["ng"], wi)
+    lh = trace.light_hit(scene, light, ro, wi)
+    mask = cl["valid"] & ~cl["delta"] & (cl["light"] < 0) & lh["valid"]
+    t_max = torch.where(mask, (lh["t"] - epsilon()) * shrink(ro.dtype), 0.0)
+    _count_query(t_max)
+    occ = trace.occluded(scene, ro, wi, t_max.detach(), rng=rng_t,
+                         salt=_S_OCC)
+    p_sct = _vertex_pdf(cl, cl["wo"], wi, lam, mp_cl)
+    ngi = torch.where(cl["surface"][..., None], lh["ng"], wi)
+    p_lig = trace.sample_towards_pdf(scene, light, ro, wi, lh["p"],
+                                     lh["ng"]) * pdf_light
+    mask = mask & ~occ & (p_sct > 0.0) & (p_lig > 0.0)
+    emit = trace.emitted(scene, lh["mat"], lam, lh["uv"], lh["backface"])
+    lvert = {"p": lh["p"], "ng": lh["ng"], "ns": lh["ng"], "wo": zero3,
+             "pdf_fwd": _sa_to_area(p_lig, cl["p"], lh["p"], wi, ngi),
+             "pdf_bck": zeros, "light": light, "valid": mask,
+             "delta": false, "surface": ~false}
+    f_val = _vertex_f(cl, wi, lam, RADIANCE, mp_cl)
+    tr = trace.transmittance(scene, lam, lh["t"])
+    cos_wi = bsdf.shading_cosine(mp_cl, wi, cl["ns"])
+    p_safe = torch.where(mask, torch.clamp(p_lig, min=_TINY), 1.0)
+    contrib = cl["gathered"] * f_val * emit * tr \
+        * (cos_wi / p_safe)[..., None]
+    w = _mis_weight(scene, camera, lam, [lvert], cp, 1, t, mp_ct1=mp_cl)
+    return torch.where(mask[..., None], contrib * w[..., None], 0.0)
+
+
+def _strategy_t1(scene, camera, lam, lp, mp_l, rng_con, s, zero3, zeros,
+                 false):
+    """Strategy (s, 1): light vertex s - 1 seen through the lens, one
+    any-hit query (reference ``connect_light_path``, ``:78-135``); its
+    splat (raster (N, 2), color (N, 4), mask (N,))."""
+    ll, mp_ll = lp[s - 1], mp_l[s - 1]
+    rng_s = _salted(rng_con, s + 64, 0x85EBCA6B)
+    u_sq = torch.stack([_randfloat(rng_s, _S_SQ0),
+                        _randfloat(rng_s, _S_SQ1)], -1)
+    co, cd, cam_ok = camera.sample_towards(ll["p"], u_sq)
+    dist = norm(ll["p"] - co)
+    mask = ll["valid"] & ~ll["delta"] & cam_ok
+    t_max = torch.where(mask, dist * shrink(dist.dtype), 0.0).detach()
+    _count_query(t_max)
+    occ = trace.occluded(scene, co, cd, t_max, rng=rng_s, salt=_S_OCC)
+    p_sct = _vertex_pdf(ll, ll["wo"], -cd, lam, mp_ll)
+    p_imp = camera.pdf_importance(co, cd, ll["p"])
+    imp, raster, imp_ok = camera.sample_importance(co, cd)
+    mask = (mask & ~occ & (p_sct > 0.0) & (p_imp > 0.0) & imp_ok
+            & (imp > 0.0))
+    p_imp_safe = torch.where(mask, torch.clamp(p_imp, min=_TINY), 1.0)
+    color = (imp / p_imp_safe)[..., None] * torch.ones_like(lam)
+    cvert = {"p": co, "ng": zero3, "pdf_fwd": camera.pdf_xo(co),
+             "pdf_bck": zeros, "valid": mask, "delta": false,
+             "surface": false}
+    tr = trace.transmittance(scene, lam, dist)
+    f_val = _vertex_f(ll, -cd, lam, IMPORTANCE, mp_ll)
+    cos_l = bsdf.shading_cosine(mp_ll, -cd, ll["ns"])
+    corr = _shading_correction(mp_ll, ll, -cd)
+    w = _mis_weight(scene, camera, lam, lp, [cvert], s, 1, mp_ls1=mp_ll)
+    out = color * ll["gathered"] * tr * f_val \
+        * (cos_l * corr * w)[..., None]
+    return raster, torch.where(mask[..., None], out, 0.0), mask
+
+
+@telemetry.spanned("bdpt.integrate")
 def integrate(scene, camera, o, d, lam, ray_key=None, generator=None,
               delta=1.0, max_verts=MAX_VERTS):
     """Trace a light and a camera subpath for each of N camera rays and
@@ -521,105 +610,57 @@ def integrate(scene, camera, o, d, lam, ray_key=None, generator=None,
         ray_key = path_trace.ray_keys(generator, N, device=dev)
     ray_key = torch.as_tensor(ray_key, dtype=torch.int64, device=dev)
     rng_con = _hash_u32(ray_key ^ _C_CONNECT)
-    lp, lam = _light_path(scene, lam, _hash_u32(ray_key ^ _C_LIGHT), delta, S)
-    cp, lam = _camera_path(scene, camera, o, d, lam,
-                           _hash_u32(ray_key ^ _C_CAMERA), delta, T)
-    # every connection reads its vertices' materials at the final lam
-    mp_l = [None] + [_mp(scene, v, lam) for v in lp[1:]]
-    mp_c = [None] + [_mp(scene, v, lam) for v in cp[1:]]
+    with telemetry.span("bdpt.walk.light"):
+        lp, lam = _light_path(scene, lam, _hash_u32(ray_key ^ _C_LIGHT),
+                              delta, S)
+    with telemetry.span("bdpt.walk.camera"):
+        cp, lam = _camera_path(scene, camera, o, d, lam,
+                               _hash_u32(ray_key ^ _C_CAMERA), delta, T)
+        # every connection reads its vertices' materials at the final lam
+        mp_l = [None] + [_mp(scene, v, lam) for v in lp[1:]]
+        mp_c = [None] + [_mp(scene, v, lam) for v in cp[1:]]
     zero3 = torch.zeros_like(o)
     false = torch.zeros(N, dtype=torch.bool, device=dev)
     zeros = torch.zeros(N, dtype=o.dtype, device=dev)
     radiance = torch.zeros_like(lam)
 
     # s = 0: the camera subpath hit a light (reference ``:137-156``)
-    for t in range(2, T + 1):
-        cl = cp[t - 1]
-        emit = trace.emitted(scene, cl["mat"], lam, cl["uv"], cl["backface"])
-        w = _mis_weight(scene, camera, lam, None, cp, 0, t)
-        radiance = radiance + torch.where(
-            (cl["valid"] & (cl["light"] >= 0))[..., None],
-            cl["gathered"] * emit * w[..., None], 0.0)
+    with telemetry.span("bdpt.s0"):
+        for t in range(2, T + 1):
+            cl = cp[t - 1]
+            emit = trace.emitted(scene, cl["mat"], lam, cl["uv"],
+                                 cl["backface"])
+            w = _mis_weight(scene, camera, lam, None, cp, 0, t)
+            radiance = radiance + torch.where(
+                (cl["valid"] & (cl["light"] >= 0))[..., None],
+                cl["gathered"] * emit * w[..., None], 0.0)
 
     # s = 1: a light sampled from each camera vertex (reference
     # ``connect_camera_path``, ``:158-213``)
-    for t in range(2, T + 1):
-        cl, mp_cl = cp[t - 1], mp_c[t - 1]
-        rng_t = _salted(rng_con, t, 0x9E3779B9)
-        light, pdf_light = trace.sample_light(scene,
-                                              _randfloat(rng_t, _S_PICK))
-        u_sq = torch.stack([_randfloat(rng_t, _S_SQ0),
-                            _randfloat(rng_t, _S_SQ1)], -1)
-        wi = trace.sample_towards(scene, light, cl["p"], u_sq).detach()
-        ro = geo.offset_ray_origin(cl["p"], cl["err"], cl["ng"], wi)
-        lh = trace.light_hit(scene, light, ro, wi)
-        mask = cl["valid"] & ~cl["delta"] & (cl["light"] < 0) & lh["valid"]
-        t_max = torch.where(mask, (lh["t"] - epsilon()) * shrink(ro.dtype),
-                            0.0)
-        occ = trace.occluded(scene, ro, wi, t_max.detach(), rng=rng_t,
-                             salt=_S_OCC)
-        p_sct = _vertex_pdf(cl, cl["wo"], wi, lam, mp_cl)
-        ngi = torch.where(cl["surface"][..., None], lh["ng"], wi)
-        p_lig = trace.sample_towards_pdf(scene, light, ro, wi, lh["p"],
-                                         lh["ng"]) * pdf_light
-        mask = mask & ~occ & (p_sct > 0.0) & (p_lig > 0.0)
-        emit = trace.emitted(scene, lh["mat"], lam, lh["uv"], lh["backface"])
-        lvert = {"p": lh["p"], "ng": lh["ng"], "ns": lh["ng"], "wo": zero3,
-                 "pdf_fwd": _sa_to_area(p_lig, cl["p"], lh["p"], wi, ngi),
-                 "pdf_bck": zeros, "light": light, "valid": mask,
-                 "delta": false, "surface": ~false}
-        f_val = _vertex_f(cl, wi, lam, RADIANCE, mp_cl)
-        tr = trace.transmittance(scene, lam, lh["t"])
-        cos_wi = bsdf.shading_cosine(mp_cl, wi, cl["ns"])
-        p_safe = torch.where(mask, torch.clamp(p_lig, min=_TINY), 1.0)
-        contrib = cl["gathered"] * f_val * emit * tr \
-            * (cos_wi / p_safe)[..., None]
-        w = _mis_weight(scene, camera, lam, [lvert], cp, 1, t, mp_ct1=mp_cl)
-        radiance = radiance + torch.where(mask[..., None],
-                                          contrib * w[..., None], 0.0)
+    with telemetry.span("bdpt.s1"):
+        for t in range(2, T + 1):
+            radiance = radiance + _strategy_s1(scene, camera, lam, cp, mp_c,
+                                               rng_con, t, zero3, zeros,
+                                               false)
 
     # t = 1: each light vertex seen through the lens, a splat
     # (reference ``connect_light_path``, ``:78-135``)
-    splats = []
-    for s in range(2, S + 1):
-        ll, mp_ll = lp[s - 1], mp_l[s - 1]
-        rng_s = _salted(rng_con, s + 64, 0x85EBCA6B)
-        u_sq = torch.stack([_randfloat(rng_s, _S_SQ0),
-                            _randfloat(rng_s, _S_SQ1)], -1)
-        co, cd, cam_ok = camera.sample_towards(ll["p"], u_sq)
-        dist = norm(ll["p"] - co)
-        mask = ll["valid"] & ~ll["delta"] & cam_ok
-        occ = trace.occluded(scene, co, cd,
-                             torch.where(mask, dist * shrink(dist.dtype),
-                                         0.0).detach(),
-                             rng=rng_s, salt=_S_OCC)
-        p_sct = _vertex_pdf(ll, ll["wo"], -cd, lam, mp_ll)
-        p_imp = camera.pdf_importance(co, cd, ll["p"])
-        imp, raster, imp_ok = camera.sample_importance(co, cd)
-        mask = (mask & ~occ & (p_sct > 0.0) & (p_imp > 0.0) & imp_ok
-                & (imp > 0.0))
-        p_imp_safe = torch.where(mask, torch.clamp(p_imp, min=_TINY), 1.0)
-        color = (imp / p_imp_safe)[..., None] * torch.ones_like(lam)
-        cvert = {"p": co, "ng": zero3, "pdf_fwd": camera.pdf_xo(co),
-                 "pdf_bck": zeros, "valid": mask, "delta": false,
-                 "surface": false}
-        tr = trace.transmittance(scene, lam, dist)
-        f_val = _vertex_f(ll, -cd, lam, IMPORTANCE, mp_ll)
-        cos_l = bsdf.shading_cosine(mp_ll, -cd, ll["ns"])
-        corr = _shading_correction(mp_ll, ll, -cd)
-        w = _mis_weight(scene, camera, lam, lp, [cvert], s, 1, mp_ls1=mp_ll)
-        out = color * ll["gathered"] * tr * f_val \
-            * (cos_l * corr * w)[..., None]
-        splats.append((raster, torch.where(mask[..., None], out, 0.0), mask))
-    splat_raster, splat_color, splat_mask = (torch.stack(x) for x in
-                                             zip(*splats))
+    with telemetry.span("bdpt.t1"):
+        splats = [_strategy_t1(scene, camera, lam, lp, mp_l, rng_con, s,
+                               zero3, zeros, false)
+                  for s in range(2, S + 1)]
+        splat_raster, splat_color, splat_mask = (torch.stack(x) for x in
+                                                 zip(*splats))
+        if telemetry.on():
+            telemetry.add("bdpt.splats", int(splat_mask.sum()))
 
     # general s, t >= 2, s outer and t inner (reference ``connect_paths``,
     # ``:219-276``), the strategies of one s as one batch
     for s in range(2, S + 1):
-        for c in _connect(scene, lam, lp, cp, mp_l, mp_c, rng_con, s,
-                          range(2, T + 1)):
-            radiance = radiance + c
+        with telemetry.span("bdpt.connect"):
+            for c in _connect(scene, lam, lp, cp, mp_l, mp_c, rng_con, s,
+                              range(2, T + 1)):
+                radiance = radiance + c
 
     radiance = torch.where(torch.isfinite(radiance), radiance, 0.0)
     splat_color = torch.where(torch.isfinite(splat_color), splat_color, 0.0)

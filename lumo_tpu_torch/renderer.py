@@ -319,9 +319,10 @@ class Renderer:
             with telemetry.span("render.fold"):
                 stats_p, rays = fold(film_p, self.new_stats(n_pix), smp,
                                      radiance, lam_out, depth)
-                if kind == BD_PATH_TRACE:
-                    # light-traced samples land at their own raster
-                    # coordinates (reference ``film/tile.rs:96-111``)
+            if kind == BD_PATH_TRACE:
+                # light-traced samples land at their own raster
+                # coordinates (reference ``film/tile.rs:96-111``)
+                with telemetry.span("render.splat"):
                     splat(film_p, sr, sc, sm, lam_out)
             return film_p, stats_p, rays
 
