@@ -8,12 +8,13 @@ one bounce per iteration under an alive mask.  Three loops share
 - ``integrate``: a Python loop until no lane is alive or ``max_depth``
   bounces have run (one host read of the live lanes' count per bounce);
 - ``integrate(..., fixed_depth=k)``: exactly ``k`` bounces and no host
-  sync, the mode that is differentiated.  Autograd keeps every bounce's
-  intermediates; with ``checkpoint=True`` each bounce runs under a
-  selective activation checkpoint that saves only the traversal queries'
-  outputs, so the backward recomputes the shading glue and never walks a
-  tree again (the JAX package's ``"geom"`` tape).  Either way each query
-  runs once per bounce;
+  sync, the mode that is differentiated; repeated on the card, one CUDA
+  graph of the forward and one of its backward (``graph_step``).
+  Autograd keeps every bounce's intermediates; with ``checkpoint=True``
+  each bounce runs under a selective activation checkpoint that saves
+  only the traversal queries' outputs, so the backward recomputes the
+  shading glue and never walks a tree again (the JAX package's ``"geom"``
+  tape).  Either way each query runs once per bounce;
 - ``integrate_stream``: the persistent wavefront, whose dead lanes pick
   up fresh samples.
 
@@ -36,7 +37,7 @@ from lumo_tpu_torch.bsdf import eval as bsdf
 from lumo_tpu_torch.color import space, wavelength
 from lumo_tpu_torch.config import RADIANCE
 from lumo_tpu_torch.geometry import intersect as geo
-from lumo_tpu_torch.integrators import common
+from lumo_tpu_torch.integrators import common, graph_step
 from lumo_tpu_torch.sampling.samplers import MASK32, _hash_u32, _randfloat
 from lumo_tpu_torch.scene import trace
 
@@ -211,6 +212,32 @@ def initial_state(o, d, lam, ray_key):
     }
 
 
+def _result(s, prims, trace_prims):
+    """integrate's outputs from the final path state and the per-bounce
+    prim ids."""
+    if trace_prims:
+        N = s["o"].shape[0]
+        stacked = (torch.stack(prims) if prims else
+                   torch.empty((0, N), dtype=torch.int64,
+                               device=s["o"].device))
+        return s["radiance"], s["lam"], s["depth"], stacked
+    return s["radiance"], s["lam"], s["depth"]
+
+
+def _fixed_depth(scene, o, d, lam, ray_key, delta, depth, trace_prims,
+                 checkpoint):
+    """Exactly ``depth`` bounces with no host sync: the step that
+    ``graph_step`` runs eagerly or as a CUDA graph."""
+    s = initial_state(o, d, lam, ray_key)
+    step = (_checkpointed_bounce if checkpoint and torch.is_grad_enabled()
+            else bounce)
+    prims = []
+    for _ in range(depth):
+        s = step(scene, s, delta)
+        prims.append(s["prim"])
+    return _result(s, prims, trace_prims)
+
+
 @telemetry.spanned("path.integrate")
 def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
               max_depth=MAX_DEPTH, trace_prims=False, fixed_depth=None,
@@ -227,32 +254,34 @@ def integrate(scene, o, d, lam, ray_key=None, generator=None, delta=1.0,
     only the traversal queries' outputs: a third to two thirds of the
     memory, at about three times the fwd+bwd time on a host-bound card
     (the JAX package checkpoints by default; ``PERF.md`` gives the H100's
-    numbers).  Returns (radiance (N, 4), lam_out (N, 4), depth
-    (N,)), and with ``trace_prims`` also the per-bounce hit prim ids
-    (bounces, N)."""
+    numbers).
+
+    A fixed-depth call on the card that repeats the previous one's
+    ``graph_step.key`` (the same scene object and tensors, lanes, dtypes,
+    depth, delta, ``trace_prims`` and grad mode; only the rays' values
+    differ) runs as a CUDA graph: the second such call captures the
+    forward and, under grad mode, autograd's backward of it, and every
+    later one replays them, with fresh outputs and gradients equal to the
+    eager step's.  On the CPU, with ``checkpoint``, in forward mode and at
+    a key's first call the step runs eagerly (``graph_step``).
+
+    Returns (radiance (N, 4), lam_out (N, 4), depth (N,)), and with
+    ``trace_prims`` also the per-bounce hit prim ids (bounces, N)."""
     N = o.shape[0]
     dev = o.device
     if ray_key is None:
         ray_key = ray_keys(generator, N, device=dev)
+    if fixed_depth is not None:
+        return graph_step.run(_fixed_depth, scene, o, d, lam, ray_key, delta,
+                              fixed_depth, trace_prims, checkpoint)
     s = initial_state(o, d, lam, ray_key)
     prims = []
-    if fixed_depth is None:
-        for _ in range(max_depth):
-            if not _any_alive(s["alive"]):
-                break
-            s = bounce(scene, s, delta)
-            prims.append(s["prim"])
-    else:
-        step = (_checkpointed_bounce if checkpoint and torch.is_grad_enabled()
-                else bounce)
-        for _ in range(fixed_depth):
-            s = step(scene, s, delta)
-            prims.append(s["prim"])
-    if trace_prims:
-        stacked = (torch.stack(prims) if prims else
-                   torch.empty((0, N), dtype=torch.int64, device=dev))
-        return s["radiance"], s["lam"], s["depth"], stacked
-    return s["radiance"], s["lam"], s["depth"]
+    for _ in range(max_depth):
+        if not _any_alive(s["alive"]):
+            break
+        s = bounce(scene, s, delta)
+        prims.append(s["prim"])
+    return _result(s, prims, trace_prims)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,9 @@ def _hash_u32(x) -> torch.Tensor:
 def _randfloat(i, p) -> torch.Tensor:
     """Kensler's hash -> float32 in [0, 1)."""
     i = u32(i)
-    p = u32(p, device=i.device)
+    # a constant salt stays a Python int: a tensor made of it on the card
+    # is a host-to-device copy at every draw, which no CUDA graph can hold
+    p = p & MASK32 if isinstance(p, int) else u32(p, device=i.device)
     i = i ^ p
     i = i ^ (i >> 17)
     i = i ^ (i >> 10)

@@ -19,6 +19,12 @@ With no profiler a span is one shared null context.
 The ``setup.*`` spans are the one exception: they run once a process
 (the scene build, a kernel library's load, a query operator's first
 call) and are recorded with or without a profiler.
+
+Code captured into a CUDA graph runs on the host once, at the capture,
+and its device work runs at every replay.  Inside :func:`taped` the
+spans' calls and the counters go to a tape, whether or not a profiler
+records, and not to the registry; :func:`replay` adds a tape to the
+registry, while a profiler records, once for each replay.
 """
 from __future__ import annotations
 
@@ -39,11 +45,13 @@ _local = threading.local()     # each thread's open spans, innermost last
 _spans = {}                    # name -> [calls, host ns, self ns]
 _counters = {}                 # name -> count
 _launch_base = {}              # launch counter -> its value at reset()
+_tape = None                   # the open tape of :func:`taped`, or None
 
 
 def on() -> bool:
-    """Whether a torch profiler records (spans and counters are live)."""
-    return _enabled()
+    """Whether spans and counters are live: a torch profiler records, or a
+    tape is open."""
+    return _enabled() or _tape is not None
 
 
 class Span:
@@ -75,6 +83,10 @@ class Span:
         if stack:
             stack[-1]._child += self.ns
         with _lock:
+            if _tape is not None and not self.name.startswith(ALWAYS):
+                calls = _tape["spans"]
+                calls[self.name] = calls.get(self.name, 0) + 1
+                return False
             rec = _spans.setdefault(self.name, [0, 0, 0])
             rec[0] += 1
             rec[1] += self.ns
@@ -94,10 +106,10 @@ def _stack() -> list:
 
 
 def span(name: str):
-    """A context manager timing ``name``: a :class:`Span` while a profiler
-    records (or always, for a ``setup.*`` name), else a shared null
+    """A context manager timing ``name``: a :class:`Span` while spans are
+    live (:func:`on`; always, for a ``setup.*`` name), else a shared null
     context."""
-    if _enabled() or name.startswith(ALWAYS):
+    if on() or name.startswith(ALWAYS):
         return Span(name)
     return _NULL
 
@@ -114,9 +126,41 @@ def spanned(name: str):
 
 
 def add(name: str, n) -> None:
-    """Add ``n`` to the host counter ``name``."""
+    """Add ``n`` to the host counter ``name`` (to the open tape's, inside
+    :func:`taped`)."""
     with _lock:
-        _counters[name] = _counters.get(name, 0) + int(n)
+        counters = _counters if _tape is None else _tape["counters"]
+        counters[name] = counters.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def taped():
+    """Record the body's span calls and counters into a fresh tape,
+    ``{"spans": {name: calls}, "counters": {name: count}}``, whether or not
+    a profiler records, and none of them into the registry: the body is
+    being captured into a CUDA graph, and its work runs at the replays
+    (:func:`replay`).  ``setup.*`` spans go to the registry as always.
+    The tape is open for every thread (autograd's backward runs on its
+    own)."""
+    global _tape
+    outer, _tape = _tape, {"spans": {}, "counters": {}}
+    try:
+        yield _tape
+    finally:
+        _tape = outer
+
+
+def replay(tape: dict) -> None:
+    """Add a tape to the registry while a profiler records: each span's
+    calls, with no host time (its host code did not run again), and each
+    counter."""
+    if not _enabled():
+        return
+    with _lock:
+        for name, n in tape["spans"].items():
+            _spans.setdefault(name, [0, 0, 0])[0] += n
+        for name, n in tape["counters"].items():
+            _counters[name] = _counters.get(name, 0) + n
 
 
 def _launches() -> dict:
@@ -153,11 +197,11 @@ def reset() -> None:
 
 def gather(table, index):
     """``table[index]``: one per-lane read of a material table, counted as
-    ``bsdf.table_gathers`` while a profiler records (each such read's
+    ``bsdf.table_gathers`` while counters are live (each such read's
     backward is one scatter-add over the lanes).  A table that requires
     grad, read under grad mode, goes to ``bsdf.table_grad.gather``, which
     chooses that scatter-add's implementation."""
-    if _enabled():
+    if on():
         add("bsdf.table_gathers", 1)
     if table.requires_grad and torch.is_grad_enabled():
         from lumo_tpu_torch.bsdf import table_grad
